@@ -1,0 +1,390 @@
+#!/usr/bin/env python3
+"""Drive councilx_torch's serving path once on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Runs from the root of a checkout; imports nothing of JAX or ``councilx``.
+Phases, in order; any failure raises and exits non-zero:
+
+1. device: a CUDA card is required; print its name and power limit;
+2. build: compile the conv3x3 CUDA kernel and import the Triton norm
+   kernel from the checkout's sources;
+3. each kernel against its plain PyTorch version on the card, at the
+   serving path's shapes, in bf16 and f32 (TF32 off for the plain
+   versions): max abs error against a stated tolerance, median times;
+4. the serving slice at full width (council-4, 256px, dim 64, n_res 4,
+   bf16, random weights from a seed): 4 members saved as a reference
+   ``.pt``, loaded through ``councilx_torch.cli.serve.build_engine``,
+   concurrent uint8 requests from threads, results checked against direct
+   ``Translator`` calls and the kernels' launch counts checked per member
+   forward; then the council ensemble (``member="all"``);
+5. accuracy of the path: the card's bf16 and f32 kernel paths against the
+   port on the CPU in f32, which uses the plain versions.
+
+The line before the last is one JSON object describing every kernel; the
+last is ``{"ok": true, "device": {...}}``.
+"""
+
+import json
+import os
+import subprocess
+import tempfile
+import threading
+import time
+
+import numpy as np
+import torch
+
+from councilx_torch.cli.serve import build_engine
+from councilx_torch.config import Config
+from councilx_torch.inference.translate import Translator
+from councilx_torch.ops import _build
+from councilx_torch.ops.conv3x3 import conv3x3_valid, conv3x3_valid_reference
+from councilx_torch.ops.instance_norm import (instance_norm,
+                                              instance_norm_reference)
+
+# configs/soak_256_council4.yaml, the flagship serving model
+FLAGSHIP = {
+    "compute_dtype": "bfloat16",
+    "council": {"council_size": 4, "council_w": 0.2,
+                "council_start_at_iter": 0},
+    "focus_loss": {"focus_enabled": True, "mask_total_w": 0.005,
+                   "mask_zero_or_one_w": 0.005},
+    "gen": {"dim": 64, "mlp_dim": 256, "style_dim": 8, "n_downsample": 2,
+            "n_res": 4},
+    "dis": {"dim": 64, "n_layer": 4, "num_scales": 3},
+    "new_size": 270, "crop_image_height": 256, "crop_image_width": 256,
+}
+HW = 256
+BATCH = 8
+N_MEMBERS = 4
+# kernel launches per member forward (encode_content + decode): 8 encoder +
+# 8 decoder resblock convs; 11 IN (7x7, two stride-2, 8 resblock) + 8 AdaIN
+CONV_PER_FWD = 16
+NORM_PER_FWD = 19
+ADAIN_PER_FWD = 8
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def median_ms(fn, reps: int = 15) -> list:
+    """Per-launch times in ms from CUDA events."""
+    out = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        out.append(s.elapsed_time(e))
+    return out
+
+
+def time_pair(kernel, plain):
+    """Median ms of kernel and plain, timed in turns: plain, kernel,
+    kernel, plain (after one warm launch each)."""
+    kernel(), plain()
+    torch.cuda.synchronize()
+    p = median_ms(plain)
+    k = median_ms(kernel) + median_ms(kernel)
+    p += median_ms(plain)
+    return float(np.median(k)), float(np.median(p))
+
+
+def phase_kernels(g: torch.Generator, card_str: str) -> dict:
+    """Phase 3: every kernel vs its plain version at the path's shapes.
+
+    Tolerances, relative to the largest |plain| value m:
+      bf16: 2**-6 * m, two bf16 ulps at m — both sides sum in f32 and
+            round once to bf16, so they may differ by a rounding step;
+      f32 conv: 1e-4 * m — f32 sums of K = 9*256 = 2304 terms in another
+            order;
+      f32 norm: 1e-5 * m — f32 sums over HW in another order."""
+    results = {}
+    tol_rel = {("conv", torch.bfloat16): 2 ** -6,
+               ("conv", torch.float32): 1e-4,
+               ("norm", torch.bfloat16): 2 ** -6,
+               ("norm", torch.float32): 1e-5}
+    cases = []
+    for dt in (torch.bfloat16, torch.float32):
+        xp = torch.randn(BATCH, 66, 66, 256, device="cuda",
+                         generator=g).to(dt)
+        k = (torch.randn(3, 3, 256, 256, device="cuda", generator=g)
+             / 48.0).to(dt)
+        cases.append(("conv3x3", "conv", dt, tuple(xp.shape),
+                      lambda xp=xp, k=k: conv3x3_valid(xp, k),
+                      lambda xp=xp, k=k: conv3x3_valid_reference(xp, k)))
+        for shape in ((BATCH, 64, 64, 256), (BATCH, 256, 256, 64)):
+            x = (torch.randn(*shape, device="cuda", generator=g) * 3
+                 + 1).to(dt)
+            cases.append(("instance_norm", "norm", dt, shape,
+                          lambda x=x: instance_norm(x),
+                          lambda x=x: instance_norm_reference(x)))
+        x = (torch.randn(BATCH, 64, 64, 256, device="cuda", generator=g) * 3
+             + 1).to(dt)
+        gm = torch.randn(BATCH, 256, device="cuda", generator=g)
+        bt = torch.randn(BATCH, 256, device="cuda", generator=g)
+        cases.append(("adain", "norm", dt, tuple(x.shape),
+                      lambda x=x, gm=gm, bt=bt: instance_norm(x, gm, bt),
+                      lambda x=x, gm=gm, bt=bt: instance_norm_reference(
+                          x, gm, bt)))
+    for name, kind, dt, shape, kern, plain in cases:
+        got = kern()
+        torch.cuda.synchronize()
+        ref = plain()
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = tol_rel[(kind, dt)] * ref.float().abs().max().item()
+        ms, plain_ms = time_pair(kern, plain)
+        dname = "bf16" if dt == torch.bfloat16 else "f32"
+        log(f"[kernels] {name} {dname} {shape}: max_abs_err {err:.6g} "
+            f"(tol {tol:.6g}) kernel {ms:.6g} ms plain {plain_ms:.6g} ms "
+            f"[{card_str}]")
+        if not (err <= tol):
+            raise AssertionError(f"{name} {dname} {shape}: max_abs_err "
+                                 f"{err} > tol {tol}")
+        results[(name, dname, shape)] = {"max_abs_err": err, "ms": ms,
+                                         "plain_ms": plain_ms}
+    return results
+
+
+def reset_counts():
+    conv3x3_valid.launches = 0
+    instance_norm.launches = 0
+    instance_norm.affine_launches = 0
+
+
+def counts():
+    return (conv3x3_valid.launches, instance_norm.launches,
+            instance_norm.affine_launches)
+
+
+def check_counts(got, forwards: int, where: str):
+    want = (CONV_PER_FWD * forwards, NORM_PER_FWD * forwards,
+            ADAIN_PER_FWD * forwards)
+    log(f"[serve] {where}: launches conv/norm/adain {got}, want {want} "
+        f"for {forwards} member forwards")
+    if got != want:
+        raise AssertionError(f"{where}: kernel launches {got} != {want}")
+
+
+def submit_all(engine, images, seeds):
+    """Submit one request per image from its own thread; return results."""
+    futures = [None] * len(images)
+
+    def go(i):
+        futures[i] = engine.submit(images[i], seed=seeds[i])
+
+    threads = [threading.Thread(target=go, args=(i,))
+               for i in range(len(images))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+        if t.is_alive():
+            raise RuntimeError("a submitting thread hung")
+    return [f.result(timeout=300) for f in futures]
+
+
+def phase_serve(card_str: str, tmp: str):
+    """Phase 4: the serving slice through build_engine, at full width."""
+    cfg = Config.from_dict(FLAGSHIP)
+    tr = Translator(cfg, device="cuda")
+    gens = tr.init_members(N_MEMBERS, seed=0)
+    ckpt = os.path.join(tmp, "gen_flagship.pt")
+    torch.save({f"a2b_{i}": {k: v.cpu() for k, v in g.state_dict().items()}
+                for i, g in enumerate(gens)}, ckpt)
+    del gens
+    rng = np.random.default_rng(0)
+    n_req = 2 * BATCH
+    images = rng.integers(0, 256, (n_req, HW, HW, 3), dtype=np.uint8)
+    seeds = [1000 + i for i in range(n_req)]
+
+    engine = build_engine(cfg, ckpt, "0", "a2b", max_batch=BATCH,
+                          max_delay_ms=200.0, warmup=True, device="cuda")
+    try:
+        reset_counts()
+        outs = submit_all(engine, images, seeds)
+        torch.cuda.synchronize()
+        launches = counts()
+        stats = engine.snapshot_stats()
+        check_counts(launches, stats["batches"], "member 0")
+        # bf16 roundings depend on the batch shape (library algorithm
+        # choices, the norm kernel's channel blocking), so the direct
+        # reference runs at the engine's bucket: the requests must have
+        # coalesced into full buckets of BATCH
+        if stats["batch_size_histogram"] != {BATCH: n_req // BATCH}:
+            raise AssertionError(f"engine did not coalesce into full "
+                                 f"buckets: {stats}")
+        zs = np.stack([engine.make_z(s) for s in seeds])
+        direct = np.concatenate([engine.translator.translate_u8io(
+            engine.params, images[j:j + BATCH], z=zs[j:j + BATCH])
+            for j in range(0, n_req, BATCH)])
+        for i, out in enumerate(outs):
+            if out.shape != (HW, HW, 3) or out.dtype != np.uint8:
+                raise AssertionError(f"request {i}: {out.shape} {out.dtype}")
+            diff = np.abs(out.astype(np.int16) - direct[i].astype(np.int16))
+            if diff.max() > 1:
+                raise AssertionError(f"request {i}: engine vs direct "
+                                     f"differs by {diff.max()} levels")
+        single = engine.translator.translate_u8io(engine.params, images[:1],
+                                                  z=zs[:1])[0]
+        b1 = np.abs(single.astype(np.int16) - outs[0].astype(np.int16))
+        log(f"[serve] member 0: {n_req} requests OK, each within 1 uint8 "
+            f"level of a direct translate_u8io call at batch {BATCH}; the "
+            f"same image at batch 1 differs by up to {b1.max()} levels "
+            f"(mean {b1.mean():.4g})")
+        log(f"[serve] /stats {json.dumps(stats)} [{card_str}]")
+
+        # throughput at bucket 8: full buckets through the engine (one
+        # round first, so one-off costs such as pinned-buffer allocation
+        # stay out of the timed run), and the device call alone
+        n_tp = 32 * BATCH
+        tp_imgs = np.repeat(images[:BATCH], 32, axis=0)
+        for f in [engine.submit(im, seed=0) for im in images[:BATCH]]:
+            f.result(timeout=300)
+        t0 = time.perf_counter()
+        for f in [engine.submit(im, seed=i) for i, im in enumerate(tp_imgs)]:
+            f.result(timeout=300)
+        engine_ips = n_tp / (time.perf_counter() - t0)
+        x8 = torch.from_numpy(images[:BATCH]).cuda()
+        z8 = torch.randn(BATCH, cfg.gen.style_dim).cuda()
+        ms = median_ms(lambda: engine.translator.translate_u8io_device(
+            engine.params, x8, z=z8), reps=10)
+        device_ips = BATCH / (float(np.median(ms)) / 1e3)
+        log(f"[serve] member 0 bucket {BATCH}: engine {engine_ips:.6g} "
+            f"img/s ({n_tp} requests), device call "
+            f"{float(np.median(ms)):.6g} ms = {device_ips:.6g} img/s "
+            f"[{card_str}]")
+        log(f"[serve] /stats {json.dumps(engine.snapshot_stats())} "
+            f"[{card_str}]")
+    finally:
+        engine.stop()
+
+    engine = build_engine(cfg, ckpt, "all", "a2b", max_batch=BATCH,
+                          max_delay_ms=200.0, warmup=True, device="cuda")
+    try:
+        reset_counts()
+        outs = submit_all(engine, images[:4], seeds[:4])
+        torch.cuda.synchronize()
+        ens_launches = counts()
+        stats = engine.snapshot_stats()
+        check_counts(ens_launches, stats["batches"] * N_MEMBERS, "all")
+        if stats["batch_size_histogram"] != {4: 1}:
+            raise AssertionError(f"ensemble requests did not coalesce into "
+                                 f"one bucket of 4: {stats}")
+        direct = engine.translator.translate_all_u8io_device(
+            engine.params, images[:4],
+            np.stack([engine.make_z(s) for s in seeds[:4]])).cpu().numpy()
+        for i, out in enumerate(outs):
+            if out.shape != (N_MEMBERS, HW, HW, 3) or out.dtype != np.uint8:
+                raise AssertionError(f"ensemble request {i}: {out.shape}")
+            diff = np.abs(out.astype(np.int16)
+                          - direct[:, i].astype(np.int16))
+            if diff.max() > 1:
+                raise AssertionError(f"ensemble request {i} differs by "
+                                     f"{diff.max()} levels")
+        log(f"[serve] all members: 4 requests OK, "
+            f"{(N_MEMBERS, HW, HW, 3)} each; /stats {json.dumps(stats)} "
+            f"[{card_str}]")
+    finally:
+        engine.stop()
+    return ckpt, launches
+
+
+def phase_accuracy(ckpt: str, card_str: str):
+    """Phase 5: member 0, 2 images, fixed z: the card's bf16 path and f32
+    path against the port on the CPU in f32 (the plain versions).
+
+    Tolerances in [-1, 1] output units:
+      f32 on the card: max 1e-3 — same math, other summation orders
+            (TF32 is off), through ~40 layers;
+      bf16 on the card: mean 2e-2, max 0.25 — bf16 keeps 8 significant
+            bits (~0.4% per rounding), compounded over ~40 layers."""
+    from councilx_torch.ckpt.manager import load_generator_state_dicts
+
+    cfg32 = Config.from_dict({**FLAGSHIP, "compute_dtype": "float32"})
+    sd0 = load_generator_state_dicts(ckpt, cfg32)[0]
+    rng = np.random.default_rng(1)
+    x = rng.uniform(-1, 1, (2, HW, HW, 3)).astype(np.float32)
+    z = rng.standard_normal((2, 8)).astype(np.float32)
+    tr_cpu = Translator(cfg32, device="cpu")
+    ref = tr_cpu.translate(tr_cpu.load_members([sd0])[0], x, z)[0].numpy()
+    if ref.shape != (2, HW, HW, 3) or not np.isfinite(ref).all():
+        raise AssertionError(f"CPU reference: {ref.shape}, non-finite")
+    for name, cfg, tol_mean, tol_max in (
+            ("f32", cfg32, 1e-3, 1e-3),
+            ("bf16", Config.from_dict(FLAGSHIP), 2e-2, 0.25)):
+        tr = Translator(cfg, device="cuda")
+        got = tr.translate(tr.load_members([sd0])[0], x, z)[0].cpu().numpy()
+        if got.shape != ref.shape or not np.isfinite(got).all():
+            raise AssertionError(f"{name}: {got.shape}, non-finite values")
+        d = np.abs(got - ref)
+        log(f"[accuracy] card {name} vs CPU f32: mean abs {d.mean():.6g} "
+            f"max abs {d.max():.6g} (tol mean {tol_mean}, max {tol_max}) "
+            f"[{card_str}]")
+        if not (d.mean() <= tol_mean and d.max() <= tol_max):
+            raise AssertionError(f"card {name} path disagrees with CPU f32")
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
+                         "is_available() is false)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card_str = card()
+    log(f"[device] {torch.cuda.get_device_name(0)}; torch "
+        f"{torch.__version__} cuda {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    _build.load_cuda_library("conv3x3")
+    _build.load_triton_module("instance_norm_triton")
+    log(f"[build] {time.perf_counter() - t0:.6g} s "
+        f"{json.dumps(_build.build_seconds)}")
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    kres = phase_kernels(g, card_str)
+
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        ckpt, launches = phase_serve(card_str, tmp)
+        phase_accuracy(ckpt, card_str)
+
+    conv_l, norm_l, adain_l = launches
+    main_shape = (BATCH, 64, 64, 256)
+    entries = [
+        ("conv3x3", "cuda", "councilx_torch/csrc/conv3x3.cu",
+         "councilx/ops/pallas_conv.py:82", conv_l,
+         kres[("conv3x3", "bf16", (BATCH, 66, 66, 256))]),
+        ("instance_norm", "triton",
+         "councilx_torch/csrc/instance_norm_triton.py",
+         "councilx/ops/pallas_norm.py:56", norm_l - adain_l,
+         kres[("instance_norm", "bf16", main_shape)]),
+        ("adain", "triton", "councilx_torch/csrc/instance_norm_triton.py",
+         "councilx/ops/pallas_norm.py:67", adain_l,
+         kres[("adain", "bf16", main_shape)]),
+    ]
+    for e in entries:
+        if e[4] < 1:
+            raise AssertionError(f"{e[0]} was not launched on the path")
+    log(card_str)
+    log(json.dumps({"kernels": [
+        {"name": n, "route": r, "source": s, "replaces": rep,
+         "launches": lc, **m} for n, r, s, rep, lc, m in entries]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,220 @@
+"""Batched translation (reference test_on_folder.py, SURVEY.md §3.4).
+
+Counterpart of ``councilx/inference/translate.py::Translator``. PyTorch runs
+eagerly, so the JAX package's jitted functions become plain methods under
+``torch.inference_mode()``, and its vmapped member axis becomes a loop over
+the members' ``AdaINGen`` modules.
+
+``params`` is one member's ``AdaINGen`` or a sequence of them (the
+council); ``member=i`` picks one out of a sequence. Build them with
+:meth:`Translator.load_members` (state dicts) or
+:meth:`Translator.init_members` (random weights from a seed).
+
+Inputs may be numpy arrays or tensors; they are moved to the translator's
+device. Randomness is a ``torch.Generator`` (CPU), or an explicit ``z``.
+"""
+
+from __future__ import annotations
+
+from typing import List, Mapping, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from councilx_torch.config import Config
+from councilx_torch.nn.blocks import init_parameters
+from councilx_torch.nn.generator import AdaINGen, composite_with_mask
+
+Members = Union[AdaINGen, Sequence[AdaINGen]]
+
+
+def _u8_from_unit(out: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] f32 -> uint8: scale, clamp, round (denormalize_to_uint8)."""
+    arr = ((out + 1.0) * 0.5).clamp(0.0, 1.0)
+    return (arr * 255.0 + 0.5).to(torch.uint8)
+
+
+def _unit_from_u8(x_u8: torch.Tensor) -> torch.Tensor:
+    """uint8 -> [-1, 1] f32 with the CLI's exact (x - 127.5) / 127.5."""
+    return (x_u8.to(torch.float32) - 127.5) / 127.5
+
+
+class Translator:
+    """The generator definition and translate functions for one config."""
+
+    def __init__(self, cfg: Config, device: Union[str, torch.device] = "cpu"):
+        if cfg.quant != "none" and not cfg.parity_mode:
+            raise NotImplementedError(
+                f"quant={cfg.quant!r} is not ported yet to councilx_torch; "
+                "serve with quant='none'")
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.focus = cfg.council.focus_enabled
+        self.dtype = (torch.float32 if cfg.parity_mode
+                      or cfg.compute_dtype == "float32" else torch.bfloat16)
+        self.mask_activation = cfg.council.mask_activation
+
+    # -- members ------------------------------------------------------------
+
+    def make_gen(self) -> AdaINGen:
+        """An AdaINGen of this config on this device (weights zero)."""
+        cfg, g = self.cfg, self.cfg.gen
+        gen = AdaINGen(
+            input_dim=cfg.data.input_dim_a, dim=g.dim, style_dim=g.style_dim,
+            n_downsample=g.n_downsample, n_res=g.n_res, activ=g.activ,
+            pad_type=g.pad_type, mlp_dim=g.mlp_dim, mlp_n_blk=g.mlp_n_blk,
+            focus_mask=self.focus,
+            ln_precision="f32" if cfg.parity_mode else cfg.in_precision,
+            ln_stats="two_pass" if cfg.parity_mode else cfg.norm_stats,
+            mask_activation=self.mask_activation, device=self.device)
+        return gen.eval().requires_grad_(False)
+
+    def load_members(self, state_dicts: Sequence[Mapping[str, torch.Tensor]]
+                     ) -> List[AdaINGen]:
+        """One AdaINGen per MUNIT-layout state dict (strict load)."""
+        gens = []
+        for sd in state_dicts:
+            gen = self.make_gen()
+            gen.load_state_dict(sd, strict=True)
+            gens.append(gen)
+        return gens
+
+    def init_members(self, n: int, seed: int) -> List[AdaINGen]:
+        """n members with random weights (``cfg.init``) drawn in order
+        from one ``torch.Generator`` seeded with ``seed``."""
+        rng = torch.Generator().manual_seed(seed)
+        gens = []
+        for _ in range(n):
+            gen = self.make_gen()
+            init_parameters(gen, self.cfg.init, rng)
+            gens.append(gen)
+        return gens
+
+    # -- helpers ------------------------------------------------------------
+
+    def _to_device(self, a) -> torch.Tensor:
+        """Upload host data without blocking: a plain host-to-device copy
+        synchronizes the stream, so the next batch's upload would wait for
+        this batch's compute; a pinned, non-blocking one does not."""
+        t = torch.as_tensor(a)
+        if self.device.type == "cuda" and t.device.type == "cpu":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def _z(self, z, shape: Tuple[int, ...],
+           rng: Optional[torch.Generator]) -> torch.Tensor:
+        if z is None:
+            if rng is None:
+                rng = torch.Generator().manual_seed(0)
+            z = torch.randn(shape, generator=rng)
+        return self._to_device(z)
+
+    @staticmethod
+    def _pick(params: Members, member: Optional[int]) -> AdaINGen:
+        return params[member] if member is not None else params
+
+    # -- one member -----------------------------------------------------------
+
+    def _translate(self, gen: AdaINGen, x: torch.Tensor, z: torch.Tensor
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        x = x.to(self.dtype)
+        out = gen.decode(gen.encode_content(x), z.to(self.dtype))
+        if self.focus:
+            x_t, mask = composite_with_mask(out, x, self.mask_activation)
+            return x_t.float(), mask.float()
+        return out.float(), None
+
+    def _translate_u8(self, gen: AdaINGen, x: torch.Tensor,
+                      z: torch.Tensor) -> torch.Tensor:
+        """Translate and denormalize to uint8 on the device: the
+        device->host copy is 4x smaller than f32."""
+        return _u8_from_unit(self._translate(gen, x, z)[0])
+
+    @torch.inference_mode()
+    def translate(self, params: Members, x, z=None,
+                  rng: Optional[torch.Generator] = None,
+                  member: Optional[int] = None):
+        """x (B,H,W,3) float in [-1,1] -> (images (B,H,W,3) f32 in [-1,1],
+        mask (B,H,W,1) | None), on the device."""
+        x = self._to_device(x)
+        z = self._z(z, (x.shape[0], self.cfg.gen.style_dim), rng)
+        return self._translate(self._pick(params, member), x, z)
+
+    @torch.inference_mode()
+    def translate_u8_device(self, params: Members, x, z=None,
+                            rng: Optional[torch.Generator] = None,
+                            member: Optional[int] = None) -> torch.Tensor:
+        """uint8 (B,H,W,3) translations, left on the device (the serving
+        engine reads them back on another thread)."""
+        x = self._to_device(x)
+        z = self._z(z, (x.shape[0], self.cfg.gen.style_dim), rng)
+        return self._translate_u8(self._pick(params, member), x, z)
+
+    def translate_u8(self, params: Members, x, z=None,
+                     rng: Optional[torch.Generator] = None,
+                     member: Optional[int] = None) -> np.ndarray:
+        return self.translate_u8_device(params, x, z=z, rng=rng,
+                                        member=member).cpu().numpy()
+
+    @torch.inference_mode()
+    def translate_u8io_device(self, params: Members, x_u8, z=None,
+                              rng: Optional[torch.Generator] = None,
+                              member: Optional[int] = None) -> torch.Tensor:
+        """uint8 in, uint8 out, on the device: the serving wire format. The
+        normalize runs on the device with the CLI's exact formula."""
+        x = _unit_from_u8(self._to_device(x_u8))
+        z = self._z(z, (x.shape[0], self.cfg.gen.style_dim), rng)
+        return self._translate_u8(self._pick(params, member), x, z)
+
+    def translate_u8io(self, params: Members, x_u8, z=None,
+                       rng: Optional[torch.Generator] = None,
+                       member: Optional[int] = None) -> np.ndarray:
+        return self.translate_u8io_device(params, x_u8, z=z, rng=rng,
+                                          member=member).cpu().numpy()
+
+    @torch.inference_mode()
+    def encode_style(self, params: Members, x,
+                     member: Optional[int] = None) -> torch.Tensor:
+        """Style code(s) (B, style_dim) f32 of example image(s) x
+        (B,H,W,3) in [-1,1] — style-guided translation."""
+        x = self._to_device(x).to(self.dtype)
+        return self._pick(params, member).encode_style(x).float()
+
+    # -- all members ------------------------------------------------------------
+
+    @torch.inference_mode()
+    def translate_all_members(self, members: Sequence[AdaINGen], x, z=None,
+                              rng: Optional[torch.Generator] = None):
+        """x (B,...), z (N,B,S) -> ((N,B,H,W,3) images, (N,B,H,W,1) masks |
+        None): each member with its own style draw."""
+        x = self._to_device(x)
+        n = len(members)
+        z = self._z(z, (n, x.shape[0], self.cfg.gen.style_dim), rng)
+        outs = [self._translate(g, x, z[i]) for i, g in enumerate(members)]
+        images = torch.stack([o[0] for o in outs])
+        masks = (torch.stack([o[1] for o in outs]) if self.focus else None)
+        return images, masks
+
+    @torch.inference_mode()
+    def translate_all_u8_device(self, members: Sequence[AdaINGen], x,
+                                z) -> torch.Tensor:
+        """Council-ensemble serving: x (B,...) and ONE z (B,S) shared by
+        every member -> (N,B,H,W,3) uint8 on the device."""
+        x = self._to_device(x)
+        z = self._to_device(z)
+        return torch.stack([self._translate_u8(g, x, z) for g in members])
+
+    @torch.inference_mode()
+    def translate_all_u8io_device(self, members: Sequence[AdaINGen], x_u8,
+                                  z) -> torch.Tensor:
+        """uint8-wire variant of :meth:`translate_all_u8_device`."""
+        return self.translate_all_u8_device(
+            members, _unit_from_u8(self._to_device(x_u8)), z)
+
+
+def denormalize_to_uint8(img: np.ndarray) -> np.ndarray:
+    """[-1,1] float -> uint8, matching the reference's save path
+    (vutils.save_image((out+1)/2): scale, clamp, round)."""
+    arr = (np.asarray(img, dtype=np.float32) + 1.0) * 0.5
+    arr = np.clip(arr, 0.0, 1.0)
+    return (arr * 255.0 + 0.5).astype(np.uint8)

@@ -1,0 +1,46 @@
+"""councilx_torch and chip_smoke.py import with JAX and councilx blocked."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CHILD = textwrap.dedent("""
+    import importlib, pkgutil, sys
+
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax")
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            top = name.split(".")[0]
+            if top in BLOCKED or top.startswith(BLOCKED) or top == "councilx":
+                raise ImportError(f"blocked import: {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import councilx_torch
+    names = ["councilx_torch"] + [
+        m.name for m in pkgutil.walk_packages(councilx_torch.__path__,
+                                              "councilx_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    import chip_smoke
+    assert callable(chip_smoke.main)
+    leaked = [m for m in sys.modules
+              if m.split(".")[0] in BLOCKED or m.split(".")[0] == "councilx"]
+    assert not leaked, leaked
+    print("imported", len(names), "modules")
+""")
+
+
+def test_port_imports_without_jax_or_councilx():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    n = int(r.stdout.split()[-2])
+    # every module of the package: config, schedules, ops (x4), nn (x3),
+    # ckpt (x4), inference (x3), data (x2), cli (x2) and the package itself
+    assert n >= 20, r.stdout
