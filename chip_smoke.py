@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive councilx_torch's serving path once on one NVIDIA GPU and check it.
+"""Drive councilx_torch's serving and training paths once on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py
 
@@ -7,19 +8,29 @@ Runs from the root of a checkout; imports nothing of JAX or ``councilx``.
 Phases, in order; any failure raises and exits non-zero:
 
 1. device: a CUDA card is required; print its name and power limit;
-2. build: compile the conv3x3 CUDA kernel and import the Triton norm
-   kernel from the checkout's sources;
+2. build: compile the CUDA kernels (conv3x3 forward/dgrad, conv3x3 wgrad;
+   one ``nvcc`` per source, in parallel) and import the Triton norm kernels
+   from the checkout's sources;
 3. each kernel against its plain PyTorch version on the card, at the
-   serving path's shapes, in bf16 and f32 (TF32 off for the plain
-   versions): max abs error against a stated tolerance, median times;
+   serving and training paths' shapes, in bf16 and f32 (TF32 off for the
+   plain versions): max abs error against a stated tolerance, median
+   times; the wgrad kernel twice, bit-equal;
 4. the serving slice at full width (council-4, 256px, dim 64, n_res 4,
    bf16, random weights from a seed): 4 members saved as a reference
    ``.pt``, loaded through ``councilx_torch.cli.serve.build_engine``,
    concurrent uint8 requests from threads, results checked against direct
    ``Translator`` calls and the kernels' launch counts checked per member
    forward; then the council ensemble (``member="all"``);
-5. accuracy of the path: the card's bf16 and f32 kernel paths against the
-   port on the CPU in f32, which uses the plain versions.
+5. accuracy of the serving path: the card's bf16 and f32 kernel paths
+   against the port on the CPU in f32, which uses the plain versions;
+6. the train step at full width (``bench.py::headline_config``: council-4,
+   256px, batch 8, bf16, focus mask, a2b) through
+   ``CouncilTrainer.train_step``: 2 warm steps, 10 timed steps, every
+   metric finite, img/s and peak memory, and the launch counts of the
+   forward and backward kernels checked against each other;
+7. accuracy of the training path: a reduced config's first two steps on
+   the card (f32 parity mode, then bf16) against the port on the CPU from
+   the same weights, batch and z.
 
 The line before the last is one JSON object describing every kernel; the
 last is ``{"ok": true, "device": {...}}``.
@@ -39,9 +50,14 @@ from councilx_torch.cli.serve import build_engine
 from councilx_torch.config import Config
 from councilx_torch.inference.translate import Translator
 from councilx_torch.ops import _build
-from councilx_torch.ops.conv3x3 import conv3x3_valid, conv3x3_valid_reference
-from councilx_torch.ops.instance_norm import (instance_norm,
-                                              instance_norm_reference)
+from councilx_torch.ops.conv3x3 import (conv3x3_dgrad,
+                                        conv3x3_dgrad_reference,
+                                        conv3x3_valid, conv3x3_valid_reference,
+                                        conv3x3_wgrad, conv3x3_wgrad_reference)
+from councilx_torch.ops.instance_norm import (
+    instance_norm, instance_norm_backward, instance_norm_backward_reference,
+    instance_norm_forward_reference, instance_norm_reference)
+from councilx_torch.train.trainer import CouncilTrainer
 
 # configs/soak_256_council4.yaml, the flagship serving model
 FLAGSHIP = {
@@ -63,6 +79,37 @@ N_MEMBERS = 4
 CONV_PER_FWD = 16
 NORM_PER_FWD = 19
 ADAIN_PER_FWD = 8
+# bench.py::headline_config, the train step the JAX package's bench times
+HEADLINE = {
+    "batch_size": 8, "compute_dtype": "bfloat16", "remat": False,
+    "adam_mu_dtype": "float32", "gen_member_chunks": 1,
+    "council": {"council_size": 4, "council_w": 0.2,
+                "council_start_at_iter": 0},
+    "focus_loss": {"focus_enabled": True},
+    "gen": {"dim": 64, "mlp_dim": 256, "style_dim": 8, "n_downsample": 2,
+            "n_res": 4},
+    "dis": {"dim": 64, "n_layer": 4, "num_scales": 3},
+    "new_size": 270, "crop_image_height": 256, "crop_image_width": 256,
+}
+# kernel sites per member and train step, all under autograd: the
+# translation (16 conv, 19 norm of which 8 AdaIN), recon_x's decode (8
+# conv, 8 AdaIN) and recon_c's content encoder (8 conv, 11 IN)
+TRAIN_CONV_PER_MEMBER = 16 + 8 + 8
+TRAIN_NORM_PER_MEMBER = 19 + 8 + 11
+TRAIN_ADAIN_PER_MEMBER = 8 + 8
+WARM_STEPS = 2
+TIMED_STEPS = 10
+# the reduced config of the training accuracy phase
+REDUCED = {
+    "batch_size": 2, "compute_dtype": "float32",
+    "council": {"council_size": 2, "council_w": 0.2,
+                "council_start_at_iter": 0},
+    "focus_loss": {"focus_enabled": True},
+    "gen": {"dim": 32, "mlp_dim": 64, "style_dim": 8, "n_downsample": 2,
+            "n_res": 2},
+    "dis": {"dim": 16, "n_layer": 2, "num_scales": 2},
+    "new_size": 64, "crop_image_height": 64, "crop_image_width": 64,
+}
 
 
 def log(*a):
@@ -102,29 +149,52 @@ def time_pair(kernel, plain):
 
 
 def phase_kernels(g: torch.Generator, card_str: str) -> dict:
-    """Phase 3: every kernel vs its plain version at the path's shapes.
+    """Phase 3: every kernel vs its plain version at the paths' shapes.
 
     Tolerances, relative to the largest |plain| value m:
-      bf16: 2**-6 * m, two bf16 ulps at m — both sides sum in f32 and
+      bf16: 2**-6 * m (conv3x3, dgrad, norms) -- both sides sum in f32 and
             round once to bf16, so they may differ by a rounding step;
-      f32 conv: 1e-4 * m — f32 sums of K = 9*256 = 2304 terms in another
-            order;
-      f32 norm: 1e-5 * m — f32 sums over HW in another order."""
+      bf16 wgrad: 2**-7 * m -- the products of bf16 inputs are exact in
+            f32; each output sums B*H*W = 32768 of them in f32, in another
+            order than the plain version, an error of order
+            sqrt(32768) * 2**-24 ~ 1e-5 of the summed magnitudes; the
+            kernel then rounds once to bf16 (2**-9 relative), which the
+            tolerance covers with room;
+      f32 conv and dgrad: 1e-4 * m -- f32 sums of K = 9*256 = 2304 terms
+            in another order;
+      f32 wgrad: 1e-4 * m -- f32 sums of 32768 terms in another order;
+      f32 norm forward: 1e-5 * m -- f32 sums over HW in another order;
+      f32 norm backward: 1e-4 * m -- f32 sums over HW (up to 65536) in
+            another order, then a difference of like terms."""
     results = {}
     tol_rel = {("conv", torch.bfloat16): 2 ** -6,
                ("conv", torch.float32): 1e-4,
+               ("wgrad", torch.bfloat16): 2 ** -7,
+               ("wgrad", torch.float32): 1e-4,
                ("norm", torch.bfloat16): 2 ** -6,
-               ("norm", torch.float32): 1e-5}
+               ("norm", torch.float32): 1e-5,
+               ("norm_bwd", torch.bfloat16): 2 ** -6,
+               ("norm_bwd", torch.float32): 1e-4}
     cases = []
+    norm_shapes = ((BATCH, 64, 64, 256), (BATCH, 128, 128, 128),
+                   (BATCH, 256, 256, 64))
     for dt in (torch.bfloat16, torch.float32):
         xp = torch.randn(BATCH, 66, 66, 256, device="cuda",
                          generator=g).to(dt)
         k = (torch.randn(3, 3, 256, 256, device="cuda", generator=g)
              / 48.0).to(dt)
+        gy = torch.randn(BATCH, 64, 64, 256, device="cuda",
+                         generator=g).to(dt)
         cases.append(("conv3x3", "conv", dt, tuple(xp.shape),
                       lambda xp=xp, k=k: conv3x3_valid(xp, k),
                       lambda xp=xp, k=k: conv3x3_valid_reference(xp, k)))
-        for shape in ((BATCH, 64, 64, 256), (BATCH, 256, 256, 64)):
+        cases.append(("conv3x3_dgrad", "conv", dt, tuple(gy.shape),
+                      lambda gy=gy, k=k: conv3x3_dgrad(gy, k),
+                      lambda gy=gy, k=k: conv3x3_dgrad_reference(gy, k)))
+        cases.append(("conv3x3_wgrad", "wgrad", dt, tuple(xp.shape),
+                      lambda xp=xp, gy=gy, dt=dt: conv3x3_wgrad(xp, gy, dt),
+                      lambda xp=xp, gy=gy: conv3x3_wgrad_reference(xp, gy)))
+        for shape in norm_shapes[::2]:
             x = (torch.randn(*shape, device="cuda", generator=g) * 3
                  + 1).to(dt)
             cases.append(("instance_norm", "norm", dt, shape,
@@ -138,29 +208,64 @@ def phase_kernels(g: torch.Generator, card_str: str) -> dict:
                       lambda x=x, gm=gm, bt=bt: instance_norm(x, gm, bt),
                       lambda x=x, gm=gm, bt=bt: instance_norm_reference(
                           x, gm, bt)))
+        for shape in norm_shapes:
+            x = (torch.randn(*shape, device="cuda", generator=g) * 3
+                 + 1).to(dt)
+            dy = torch.randn(*shape, device="cuda", generator=g).to(dt)
+            affine = shape == norm_shapes[0]
+            for gmm in ((None, gm) if affine else (None,)):
+                _, mean, rstd = instance_norm_forward_reference(x, gmm, gmm)
+                cases.append((
+                    "adain_bwd" if gmm is not None else "instance_norm_bwd",
+                    "norm_bwd", dt, shape,
+                    lambda dy=dy, x=x, m=mean, r=rstd, gmm=gmm:
+                        instance_norm_backward(dy, x, m, r, gmm),
+                    lambda dy=dy, x=x, m=mean, r=rstd, gmm=gmm:
+                        instance_norm_backward_reference(dy, x, m, r, gmm)))
     for name, kind, dt, shape, kern, plain in cases:
         got = kern()
         torch.cuda.synchronize()
         ref = plain()
-        err = (got.float() - ref.float()).abs().max().item()
-        tol = tol_rel[(kind, dt)] * ref.float().abs().max().item()
+        if isinstance(got, tuple):     # norm backward: (dx, dgamma, dbeta)
+            pairs = [(a, b) for a, b in zip(got, ref) if b is not None]
+        else:
+            pairs = [(got, ref)]
+        # each output (dx, dgamma, dbeta) against its own largest value
+        errs = [(a.float() - b.float()).abs().max().item() for a, b in pairs]
+        tols = [tol_rel[(kind, dt)] * b.float().abs().max().item()
+                for _, b in pairs]
+        err = max(errs)
         ms, plain_ms = time_pair(kern, plain)
         dname = "bf16" if dt == torch.bfloat16 else "f32"
-        log(f"[kernels] {name} {dname} {shape}: max_abs_err {err:.6g} "
-            f"(tol {tol:.6g}) kernel {ms:.6g} ms plain {plain_ms:.6g} ms "
-            f"[{card_str}]")
-        if not (err <= tol):
+        log(f"[kernels] {name} {dname} {shape}: max_abs_err "
+            f"{' '.join(f'{e:.6g}' for e in errs)} (tol "
+            f"{' '.join(f'{t:.6g}' for t in tols)}) kernel {ms:.6g} ms "
+            f"plain {plain_ms:.6g} ms [{card_str}]")
+        if not all(e <= t for e, t in zip(errs, tols)):
             raise AssertionError(f"{name} {dname} {shape}: max_abs_err "
-                                 f"{err} > tol {tol}")
+                                 f"{errs} > tol {tols}")
+        if name == "conv3x3_wgrad":
+            again = kern()
+            if not torch.equal(got, again):
+                raise AssertionError(f"conv3x3_wgrad {dname}: two launches "
+                                     f"on the same inputs differ")
+            log(f"[kernels] conv3x3_wgrad {dname}: two launches bit-equal")
         results[(name, dname, shape)] = {"max_abs_err": err, "ms": ms,
                                          "plain_ms": plain_ms}
     return results
 
 
+COUNTERS = ((conv3x3_valid, ("launches", "grad_launches")),
+            (conv3x3_dgrad, ("launches",)), (conv3x3_wgrad, ("launches",)),
+            (instance_norm, ("launches", "affine_launches", "grad_launches",
+                             "affine_grad_launches")),
+            (instance_norm_backward, ("launches", "affine_launches")))
+
+
 def reset_counts():
-    conv3x3_valid.launches = 0
-    instance_norm.launches = 0
-    instance_norm.affine_launches = 0
+    for fn, names in COUNTERS:
+        for name in names:
+            setattr(fn, name, 0)
 
 
 def counts():
@@ -336,6 +441,133 @@ def phase_accuracy(ckpt: str, card_str: str):
             raise AssertionError(f"card {name} path disagrees with CPU f32")
 
 
+def _finite(metrics) -> bool:
+    return bool(torch.isfinite(torch.stack(
+        [v.float() for v in metrics.values()])).all())
+
+
+def _snapshot():
+    return {f"{fn.__name__}.{name}": getattr(fn, name)
+            for fn, names in COUNTERS for name in names}
+
+
+def phase_train(card_str: str) -> dict:
+    """Phase 6: the train step at full width (``bench.py::headline_config``)
+    through ``CouncilTrainer.train_step``; returns the kernels' launch
+    counts over the timed steps."""
+    cfg = Config.from_dict(HEADLINE)
+    trainer = CouncilTrainer(cfg, device="cuda")
+    t0 = time.perf_counter()
+    state = trainer.init_state(seed=0)
+    rng = np.random.default_rng(0)
+    x_a, x_b = (torch.from_numpy(rng.uniform(-1, 1, (BATCH, HW, HW, 3))
+                                 .astype(np.float32)).cuda()
+                for _ in range(2))
+    torch.cuda.synchronize()
+    log(f"[train] init {time.perf_counter() - t0:.6g} s (council-"
+        f"{N_MEMBERS}, {HW}px, batch {BATCH}, bf16, random weights, seed 0)")
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(WARM_STEPS):
+        state, m = trainer.train_step(state, x_a, x_b)
+        if not _finite(m):
+            raise AssertionError(f"warm step {i}: non-finite metrics {m}")
+    torch.cuda.synchronize()
+    reset_counts()
+    series = []
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        state, m = trainer.train_step(state, x_a, x_b)
+        series.append(m)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = _snapshot()
+    for i, m in enumerate(series):
+        if not _finite(m):
+            raise AssertionError(f"timed step {i}: non-finite metrics "
+                                 f"{ {k: float(v) for k, v in m.items()} }")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[train] {TIMED_STEPS} steps in {seconds:.6g} s: "
+        f"{BATCH * TIMED_STEPS / seconds:.6g} img/s, "
+        f"{1e3 * seconds / TIMED_STEPS:.6g} ms/step; peak memory "
+        f"{peak / 2 ** 30:.6g} GiB [{card_str}]")
+    log(f"[train] loss_dis_adv "
+        f"{[round(float(m['loss_dis_adv']), 6) for m in series]}; last "
+        f"step {json.dumps({k: float(v) for k, v in series[-1].items()})} "
+        f"[{card_str}]")
+    # launch invariants: every kernel site ran under autograd, and every
+    # forward under autograd had its backward
+    steps = TIMED_STEPS * N_MEMBERS
+    conv = TRAIN_CONV_PER_MEMBER * steps
+    norm = TRAIN_NORM_PER_MEMBER * steps
+    adain = TRAIN_ADAIN_PER_MEMBER * steps
+    want = {
+        "conv3x3_valid.launches": conv, "conv3x3_valid.grad_launches": conv,
+        "conv3x3_dgrad.launches": conv, "conv3x3_wgrad.launches": conv,
+        "instance_norm.launches": norm, "instance_norm.grad_launches": norm,
+        "instance_norm.affine_launches": adain,
+        "instance_norm.affine_grad_launches": adain,
+        "instance_norm_backward.launches": norm,
+        "instance_norm_backward.affine_launches": adain}
+    log(f"[train] launches over the timed steps {json.dumps(got)}")
+    if got != want:
+        raise AssertionError(f"train launches {got} != {want}")
+    return got
+
+
+def phase_train_accuracy(card_str: str):
+    """Phase 7: the first two steps of a reduced config (council-2, 64px,
+    gen dim 32, n_res 2, dis dim 16 with 2 layers and 2 scales, batch 2) on
+    the card against the port on the CPU in f32 (the plain versions), from
+    the same weights, batch and z.
+
+    Tolerances on every metric, relative:
+      f32 (parity mode) on the card: step 1 1e-4 -- the same math on the
+            same weights, sums in another order (TF32 off); step 2 1e-3 --
+            its weights already differ, because Adam's first update turns
+            rounding-noise gradients (the conv biases that IN/AdaIN
+            removes) into moves of up to +-lr;
+      bf16 on the card: 3e-2 (and 1e-3 absolute) -- each loss is a mean
+            over many bf16-rounded values (8 significant bits) through ~40
+            layers, so most of the rounding averages out."""
+    rng = np.random.default_rng(2)
+    hw = REDUCED["crop_image_height"]
+    b = REDUCED["batch_size"]
+    x_a, x_b = (rng.uniform(-1, 1, (b, hw, hw, 3)).astype(np.float32)
+                for _ in range(2))
+    cfg32 = Config.from_dict({**REDUCED, "parity_mode": True})
+    cpu = CouncilTrainer(cfg32)
+    cpu_state = cpu.init_state(seed=1)
+    sds = cpu_state.state_dicts()
+    zs_steps = [cpu.draw_zs(cpu_state, b) for _ in range(2)]
+    ref = []
+    for zs in zs_steps:
+        cpu_state, m = cpu.train_step(cpu_state, x_a, x_b, zs=zs)
+        ref.append({k: float(v) for k, v in m.items()})
+    for name, cfg, rtols, atol in (
+            ("f32", cfg32, (1e-4, 1e-3), 0.0),
+            ("bf16", Config.from_dict({**REDUCED,
+                                       "compute_dtype": "bfloat16"}),
+             (3e-2, 3e-2), 1e-3)):
+        gpu = CouncilTrainer(cfg, device="cuda")
+        state = gpu.load_state(sds)
+        for step, (zs, want) in enumerate(zip(zs_steps, ref)):
+            state, m = gpu.train_step(state, x_a, x_b, zs=zs)
+            got = {k: float(v) for k, v in m.items()}
+            if set(got) != set(want):
+                raise AssertionError(f"{name}: metrics {sorted(got)}")
+            rel = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-12)
+                   for k in want}
+            worst = max(rel, key=rel.get)
+            log(f"[train-accuracy] card {name} step {step + 1} vs CPU f32: "
+                f"worst metric {worst} rel {rel[worst]:.6g} (rtol "
+                f"{rtols[step]}, atol {atol}) [{card_str}]")
+            for k in want:
+                if abs(got[k] - want[k]) > atol + rtols[step] * abs(want[k]):
+                    raise AssertionError(
+                        f"card {name} step {step + 1}: {k} {got[k]} vs CPU "
+                        f"{want[k]}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -347,7 +579,7 @@ def main():
         f"{torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    _build.load_cuda_library("conv3x3")
+    _build.build_cuda_libraries(["conv3x3", "conv3x3_wgrad"])
     _build.load_triton_module("instance_norm_triton")
     log(f"[build] {time.perf_counter() - t0:.6g} s "
         f"{json.dumps(_build.build_seconds)}")
@@ -357,22 +589,41 @@ def main():
 
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        ckpt, launches = phase_serve(card_str, tmp)
+        ckpt, _ = phase_serve(card_str, tmp)
         phase_accuracy(ckpt, card_str)
+    launches = phase_train(card_str)
+    phase_train_accuracy(card_str)
 
-    conv_l, norm_l, adain_l = launches
+    norm_l = launches["instance_norm.launches"]
+    adain_l = launches["instance_norm.affine_launches"]
+    bwd_l = launches["instance_norm_backward.launches"]
+    adain_bwd_l = launches["instance_norm_backward.affine_launches"]
+    conv_shape = (BATCH, 66, 66, 256)
     main_shape = (BATCH, 64, 64, 256)
+    norm_src = "councilx_torch/csrc/instance_norm_triton.py"
     entries = [
         ("conv3x3", "cuda", "councilx_torch/csrc/conv3x3.cu",
-         "councilx/ops/pallas_conv.py:82", conv_l,
-         kres[("conv3x3", "bf16", (BATCH, 66, 66, 256))]),
-        ("instance_norm", "triton",
-         "councilx_torch/csrc/instance_norm_triton.py",
+         "councilx/ops/pallas_conv.py:82",
+         launches["conv3x3_valid.launches"],
+         kres[("conv3x3", "bf16", conv_shape)]),
+        ("conv3x3_dgrad", "cuda", "councilx_torch/csrc/conv3x3.cu",
+         "councilx/ops/pallas_conv.py:279",
+         launches["conv3x3_dgrad.launches"],
+         kres[("conv3x3_dgrad", "bf16", main_shape)]),
+        ("conv3x3_wgrad", "cuda", "councilx_torch/csrc/conv3x3_wgrad.cu",
+         "councilx/ops/pallas_conv.py:178",
+         launches["conv3x3_wgrad.launches"],
+         kres[("conv3x3_wgrad", "bf16", conv_shape)]),
+        ("instance_norm", "triton", norm_src,
          "councilx/ops/pallas_norm.py:56", norm_l - adain_l,
          kres[("instance_norm", "bf16", main_shape)]),
-        ("adain", "triton", "councilx_torch/csrc/instance_norm_triton.py",
-         "councilx/ops/pallas_norm.py:67", adain_l,
-         kres[("adain", "bf16", main_shape)]),
+        ("adain", "triton", norm_src, "councilx/ops/pallas_norm.py:67",
+         adain_l, kres[("adain", "bf16", main_shape)]),
+        ("instance_norm_bwd", "triton", norm_src,
+         "councilx/ops/pallas_norm.py:121", bwd_l - adain_bwd_l,
+         kres[("instance_norm_bwd", "bf16", main_shape)]),
+        ("adain_bwd", "triton", norm_src, "councilx/ops/pallas_norm.py:132",
+         adain_bwd_l, kres[("adain_bwd", "bf16", main_shape)]),
     ]
     for e in entries:
         if e[4] < 1:

@@ -1,4 +1,5 @@
-"""Generator checkpoints for serving: ``.npz`` exports and reference ``.pt``.
+"""Checkpoints: generator ``.npz`` exports and reference ``.pt`` for
+serving, and JAX-package training parameters for the trainer.
 
 Counterpart of ``councilx/ckpt/manager.py:149-202``. Both formats become N
 per-member MUNIT-layout state dicts of float32 tensors, which the port's
@@ -14,7 +15,9 @@ import numpy as np
 import torch
 
 from councilx_torch.ckpt.torch_convert import extract_member_state_dicts
-from councilx_torch.ckpt.torch_export import export_adain_gen, unstack_members
+from councilx_torch.ckpt.torch_export import (export_adain_gen,
+                                            export_ms_image_dis,
+                                            unstack_members)
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -53,6 +56,22 @@ def params_to_state_dicts(params, cfg) -> List[StateDict]:
     return [_to_torch(export_adain_gen(
         t, n_downsample=g.n_downsample, n_res=g.n_res,
         mlp_n_blk=g.mlp_n_blk, dim=g.dim)) for t in trees]
+
+
+def train_params_to_state_dicts(params, cfg) -> Dict[str, Dict[str, List[
+        StateDict]]]:
+    """A JAX-package ``TrainState.params`` (numpy; ``params[direction]
+    [gen|dis|cdis]``, each stacked (N, ...)) -> ``{direction: {group: N
+    MUNIT-layout state dicts}}``, for ``CouncilTrainer.load_state``."""
+    d = cfg.dis
+    out: Dict[str, Dict[str, List[StateDict]]] = {}
+    for direction, groups in params.items():
+        out[direction] = {"gen": params_to_state_dicts(groups["gen"], cfg)}
+        for group in ("dis", "cdis"):
+            out[direction][group] = [
+                _to_torch(export_ms_image_dis(t, d.n_layer, d.num_scales))
+                for t in unstack_members(groups[group])]
+    return out
 
 
 def load_generator_state_dicts(checkpoint: str, cfg,

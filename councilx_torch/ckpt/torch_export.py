@@ -1,12 +1,13 @@
 """JAX-package parameter trees -> MUNIT-layout state dicts, numpy only.
 
-Counterpart of ``councilx/ckpt/torch_export.py`` (the generator half): the
-same mapping as ``export_adain_gen``, so a tree saved by the JAX package
-(``jax.device_get(params)`` or ``load_params_npz``) loads into the port's
-``AdaINGen`` with ``load_state_dict(strict=True)``. Conv kernels go HWIO ->
-OIHW, Dense kernels (in, out) -> Linear (out, in), and the decoder's AdaIN
-layers get the ``running_mean``/``running_var`` buffers the reference
-registers but never reads.
+Counterpart of ``councilx/ckpt/torch_export.py``: the same mappings as
+``export_adain_gen`` and ``export_ms_image_dis``, so a tree saved by the JAX
+package (``jax.device_get(params)`` or ``load_params_npz``) loads into the
+port's ``AdaINGen`` or ``MsImageDis`` with
+``load_state_dict(strict=True)``. Conv kernels go HWIO -> OIHW, Dense
+kernels (in, out) -> Linear (out, in), and the decoder's AdaIN layers get
+the ``running_mean``/``running_var`` buffers the reference registers but
+never reads.
 """
 
 from __future__ import annotations
@@ -122,6 +123,23 @@ def export_adain_gen(params: Params, n_downsample: int = 2, n_res: int = 4,
     out.update(export_decoder(params["dec"], "dec", n_downsample, n_res,
                               content_dim))
     out.update(export_mlp(params["mlp"], "mlp", mlp_n_blk))
+    return out
+
+
+def export_ms_image_dis(params: Params, n_layer: int = 4,
+                        num_scales: int = 3) -> Dict[str, Array]:
+    """Single-member MsImageDis parameter tree -> MUNIT state dict (numpy):
+    ``cnns.{s}.{l}.conv.*`` for the 4x4 blocks, ``cnns.{s}.{n_layer}.*``
+    for the final 1x1 conv."""
+    out: Dict[str, Array] = {}
+    for s in range(num_scales):
+        scale = params[f"scale_{s}"]
+        for layer in range(n_layer):
+            out.update(_conv_block_inv(scale[f"Conv2dBlock_{layer}"],
+                                       f"cnns.{s}.{layer}"))
+        out[f"cnns.{s}.{n_layer}.weight"] = _conv_kernel_inv(
+            _k(scale, "Conv_0", "kernel"))
+        out[f"cnns.{s}.{n_layer}.bias"] = _k(scale, "Conv_0", "bias")
     return out
 
 

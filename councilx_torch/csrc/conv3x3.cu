@@ -6,6 +6,13 @@
 // y (B, H, W, O). Sums in f32, one cast to the input type at the end. The
 // caller does the reflect pad and adds the bias, as in the JAX package.
 //
+// The same kernel is the dgrad of the conv, as _bwd_rule runs the TPU
+// kernel (pallas_conv.py:279): the cotangent zero-padded by 2,
+// (B, H+4, W+4, O), convolved with the flipped, in/out-swapped weight gives
+// d(xp) (B, H+2, W+2, C); the wrapper (ops/conv3x3.py::conv3x3_dgrad) pads
+// and flips. At the training shape that is M = 8*66*66 = 34848, N = 256,
+// K = 2304, ~41 GFLOP, bound like the forward.
+//
 // What bounds it on the H100: at the serving shape (B*64*64 pixels,
 // C = O = 256) it is an implicit GEMM with M = B*4096, N = 256, K = 9C =
 // 2304: 2*M*N*K = 4.8 GFLOP per image against ~2.2 MB of bf16 traffic per

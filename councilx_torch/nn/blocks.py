@@ -11,9 +11,10 @@ the activation's dtype at use, as the JAX modules do.
 
 The two kernel sites: the 3x3 stride-1 conv of the resblocks goes through
 :func:`councilx_torch.ops.conv3x3.conv3x3_valid`, and every IN/AdaIN
-through :func:`councilx_torch.ops.instance_norm.instance_norm`. On CUDA
-tensors those launch the Hopper kernels; on CPU tensors their plain
-versions run. Every other op is the plain reference op.
+through :func:`councilx_torch.ops.instance_norm.instance_norm`. Both are
+autograd Functions: on CUDA tensors they launch the Hopper kernels forward
+and backward; on CPU tensors their plain versions run. Every other op is
+the plain reference op.
 """
 
 from __future__ import annotations
@@ -214,6 +215,14 @@ def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     b, h, w, c = x.shape
     return x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(
         b, 2 * h, 2 * w, c)
+
+
+def avg_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
+    """AvgPool2d(3, stride=2, padding=1, count_include_pad=False) on NHWC
+    (MsImageDis's pyramid): border windows divide by their count of valid
+    elements. Returns contiguous NHWC."""
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1, count_include_pad=False)
+    return y.permute(0, 2, 3, 1).contiguous()
 
 
 class Upsample2x(nn.Module):

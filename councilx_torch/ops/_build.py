@@ -11,7 +11,8 @@ from there at first use, because ``triton`` exists only where there is a
 GPU; Triton's own compile cache is kept in the same build directory.
 
 Both happen under one lock, so the serving engine's threads cannot race a
-build. There is no fallback: a failed build raises.
+build; :func:`build_cuda_libraries` runs one ``nvcc`` per source at once.
+There is no fallback: a failed build raises.
 """
 
 from __future__ import annotations
@@ -53,31 +54,60 @@ def _nvcc() -> str:
     return found
 
 
+def _library_path(name: str) -> str:
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
+                                ).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+
+
+def _compile(names) -> None:
+    """Run one ``nvcc`` per missing library, all at once; raise if any
+    fails. Called under the lock."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    jobs = []
+    for name in names:
+        out = _library_path(name)
+        if not os.path.exists(out):
+            tmp = f"{out}.{os.getpid()}.tmp"
+            src = os.path.join(CSRC_DIR, f"{name}.cu")
+            jobs.append((src, tmp, out, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for src, tmp, out, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {src}:\n{err}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def build_cuda_libraries(names) -> None:
+    """Compile and load ``csrc/<name>.cu`` for every name, the compilers
+    running in parallel."""
+    with _lock:
+        todo = [n for n in names if n not in _libs]
+        if not todo:
+            return
+        t0 = time.perf_counter()
+        _compile(todo)
+        for name in todo:
+            _libs[name] = ctypes.CDLL(_library_path(name))
+            build_seconds[name] = time.perf_counter() - t0
+
+
 def load_cuda_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` (once per process and source hash) and
     load it."""
-    with _lock:
-        lib = _libs.get(name)
-        if lib is not None:
-            return lib
-        t0 = time.perf_counter()
-        src = os.path.join(CSRC_DIR, f"{name}.cu")
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                    ).hexdigest()[:16]
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        out = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
-        if not os.path.exists(out):
-            tmp = f"{out}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
-            r = subprocess.run(cmd, capture_output=True, text=True)
-            if r.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {src}:\n{r.stderr}")
-            os.replace(tmp, out)
-        lib = ctypes.CDLL(out)
-        _libs[name] = lib
-        build_seconds[name] = time.perf_counter() - t0
-        return lib
+    lib = _libs.get(name)
+    if lib is None:
+        build_cuda_libraries([name])
+        lib = _libs[name]
+    return lib
 
 
 def load_triton_module(name: str) -> ModuleType:

@@ -1,10 +1,18 @@
 """3x3 VALID convolution on pre-padded NHWC input: the resblock conv.
 
-Counterpart of ``councilx/ops/pallas_conv.py::conv3x3_valid`` (forward).
-On a CUDA tensor it launches the hand-written Hopper kernel in
-``councilx_torch/csrc/conv3x3.cu``; on a CPU tensor it runs the plain
-version :func:`conv3x3_valid_reference`. Nothing falls back: a CUDA input
-the kernel does not take raises.
+Counterpart of ``councilx/ops/pallas_conv.py::conv3x3_valid`` with its
+custom VJP. :func:`conv3x3_valid` is a ``torch.autograd.Function`` on every
+device:
+
+* forward: the hand-written Hopper kernel in ``csrc/conv3x3.cu`` on a CUDA
+  tensor, :func:`conv3x3_valid_reference` on a CPU tensor;
+* backward (``_bwd_rule``): d(xp) by :func:`conv3x3_dgrad` -- the forward
+  kernel run on the cotangent, zero-padded by 2, with the flipped,
+  in/out-swapped weight -- and dk by :func:`conv3x3_wgrad`, the kernel in
+  ``csrc/conv3x3_wgrad.cu`` (f32 sums, returned in k's dtype). On CPU
+  tensors both run their plain versions.
+
+Nothing falls back: a CUDA input a kernel does not take raises.
 """
 
 from __future__ import annotations
@@ -19,6 +27,15 @@ from councilx_torch.ops import _build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
 _MIN_TILE_M = 64        # the f32 kernel's rows per block (bf16: 128)
+# wgrad tiles (rows of the (9C, O) result, outputs, pixels per K' step) of
+# csrc/conv3x3_wgrad.cu, and about how many blocks fill the card
+_WGRAD_TILES = {torch.bfloat16: (128, 128, 32), torch.float32: (64, 64, 16)}
+_WGRAD_TARGET_BLOCKS = 528   # 4 per SM of an H100
+
+
+def _acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """f32 sums for bf16/f32 inputs, f64 stays f64 (gradcheck)."""
+    return torch.promote_types(t.dtype, torch.float32)
 
 
 def conv3x3_valid_reference(xp: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -31,7 +48,37 @@ def conv3x3_valid_reference(xp: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-def _lib() -> ctypes.CDLL:
+def _flip_weight(k: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(3, 3, C, O) -> the flipped, in/out-swapped (3, 3, O, C) in dtype."""
+    return k.flip((0, 1)).transpose(2, 3).to(dtype).contiguous()
+
+
+def _pad2(g: torch.Tensor) -> torch.Tensor:
+    """Zero-pad NHWC g by 2 on H and W (contiguous NHWC result)."""
+    return F.pad(g, (0, 0, 2, 2, 2, 2)).contiguous()
+
+
+def conv3x3_dgrad_reference(g: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Plain version of d(xp), as ``_bwd_rule`` computes it: g (B, H, W, O)
+    zero-padded by 2, VALID-convolved with the flipped, in/out-swapped k ->
+    (B, H+2, W+2, C) in g's dtype."""
+    return conv3x3_valid_reference(_pad2(g), _flip_weight(k, g.dtype))
+
+
+def conv3x3_wgrad_reference(xp: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain version of dk: dk[dy,dx,c,o] = sum_{b,i,j} xp[b,i+dy,j+dx,c] *
+    g[b,i,j,o], summed in f32 (f64 for f64 input) -> (3, 3, C, O)."""
+    acc = _acc_dtype(xp)
+    _, hp, wp, c = xp.shape
+    h, w, o = hp - 2, wp - 2, g.shape[-1]
+    x32 = xp.to(acc)
+    g2 = g.to(acc).reshape(-1, o)
+    taps = [x32[:, dy:dy + h, dx:dx + w].reshape(-1, c).t() @ g2
+            for dy in range(3) for dx in range(3)]
+    return torch.stack(taps).reshape(3, 3, c, o)
+
+
+def _conv_lib() -> ctypes.CDLL:
     lib = _build.load_cuda_library("conv3x3")
     fn = lib.councilx_conv3x3_valid
     if fn.argtypes is None:
@@ -43,53 +90,185 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def conv3x3_valid(xp: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """VALID 3x3 stride-1 conv: xp (B, H+2, W+2, C) NHWC contiguous,
-    k (3, 3, C, O) HWIO -> (B, H, W, O) in xp's dtype, f32 accumulation.
+def _wgrad_lib() -> ctypes.CDLL:
+    lib = _build.load_cuda_library("conv3x3_wgrad")
+    fn = lib.councilx_conv3x3_wgrad
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_longlong, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
 
-    The caller pads (reflect) and adds the bias, as in the JAX package.
-    ``conv3x3_valid.launches`` counts kernel launches."""
-    if xp.device.type == "cpu":
-        return conv3x3_valid_reference(xp, k)
+
+def _check_cuda(name: str, xp: torch.Tensor, k_shape, other: torch.Tensor):
+    """The kernels' gate: 4-D contiguous 16-byte aligned NHWC on one CUDA
+    device, a (3, 3, C, O) weight, C and O multiples of 8."""
     if xp.device.type != "cuda":
-        raise ValueError(f"conv3x3_valid: unsupported device {xp.device}")
-    if xp.dim() != 4 or k.dim() != 4:
-        raise ValueError(f"conv3x3_valid: want 4-D xp and k, got "
-                         f"{tuple(xp.shape)} and {tuple(k.shape)}")
+        raise ValueError(f"{name}: unsupported device {xp.device}")
+    if xp.dim() != 4 or len(k_shape) != 4:
+        raise ValueError(f"{name}: want 4-D xp and k, got {tuple(xp.shape)} "
+                         f"and {tuple(k_shape)}")
     b, hp, wp, c = xp.shape
-    kh, kw, kc, o = k.shape
-    h, w = hp - 2, wp - 2
+    kh, kw, kc, o = k_shape
     if (kh, kw) != (3, 3) or kc != c:
-        raise ValueError(f"conv3x3_valid: kernel {tuple(k.shape)} does not "
-                         f"match input channels {c}")
+        raise ValueError(f"{name}: kernel {tuple(k_shape)} does not match "
+                         f"input channels {c}")
     if c % 8 or o % 8:
-        raise ValueError(f"conv3x3_valid: C={c} and O={o} must be "
-                         f"multiples of 8")
-    if h < 1 or w < 1 or b < 1:
-        raise ValueError(f"conv3x3_valid: empty output for {tuple(xp.shape)}")
+        raise ValueError(f"{name}: C={c} and O={o} must be multiples of 8")
+    if hp < 3 or wp < 3 or b < 1:
+        raise ValueError(f"{name}: empty output for {tuple(xp.shape)}")
     if xp.dtype not in _DTYPE_CODES:
-        raise ValueError(f"conv3x3_valid: unsupported dtype {xp.dtype}")
-    if -(-b * h * w // _MIN_TILE_M) > _MAX_GRID_Y:
-        raise ValueError(f"conv3x3_valid: {b * h * w} output pixels exceed "
-                         f"the launch grid")
+        raise ValueError(f"{name}: unsupported dtype {xp.dtype}")
     if not xp.is_contiguous():
-        raise ValueError("conv3x3_valid: xp must be contiguous NHWC")
-    if k.device != xp.device:
-        raise ValueError(f"conv3x3_valid: k on {k.device}, xp on {xp.device}")
+        raise ValueError(f"{name}: xp must be contiguous NHWC")
+    if other.device != xp.device:
+        raise ValueError(f"{name}: operands on {other.device} and "
+                         f"{xp.device}")
+    if xp.data_ptr() % 16:
+        raise ValueError(f"{name}: inputs must be 16-byte aligned")
+
+
+def _launch_conv(name: str, xp: torch.Tensor, k: torch.Tensor
+                 ) -> torch.Tensor:
+    """The conv3x3.cu kernel on CUDA xp and k: (B, H+2, W+2, C) x (3, 3, C,
+    O) -> (B, H, W, O)."""
+    _check_cuda(name, xp, k.shape, k)
+    b, hp, wp, c = xp.shape
+    h, w, o = hp - 2, wp - 2, k.shape[-1]
+    if -(-b * h * w // _MIN_TILE_M) > _MAX_GRID_Y:
+        raise ValueError(f"{name}: {b * h * w} output pixels exceed the "
+                         f"launch grid")
     k = k.to(xp.dtype).contiguous()
-    if xp.data_ptr() % 16 or k.data_ptr() % 16:
-        raise ValueError("conv3x3_valid: inputs must be 16-byte aligned")
+    if k.data_ptr() % 16:
+        raise ValueError(f"{name}: inputs must be 16-byte aligned")
     y = torch.empty((b, h, w, o), dtype=xp.dtype, device=xp.device)
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().councilx_conv3x3_valid(
+        err = _conv_lib().councilx_conv3x3_valid(
             xp.data_ptr(), k.data_ptr(), y.data_ptr(), b, h, w, c, o,
             _DTYPE_CODES[xp.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"conv3x3_valid: kernel launch failed with CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{err}")
+    return y
+
+
+def _forward(xp: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    if xp.device.type == "cpu":
+        return conv3x3_valid_reference(xp, k)
+    y = _launch_conv("conv3x3_valid", xp, k)
     conv3x3_valid.launches += 1
     return y
 
 
+def conv3x3_dgrad(g: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """d(xp) of :func:`conv3x3_valid` for the cotangent g (B, H, W, O) and
+    the weight k (3, 3, C, O): (B, H+2, W+2, C) in g's dtype.
+
+    On a CUDA tensor: the forward kernel on g zero-padded by 2 with the
+    flipped, in/out-swapped weight (K1 run as dgrad, as ``_bwd_rule`` runs
+    it); ``conv3x3_dgrad.launches`` counts those launches."""
+    if g.device.type == "cpu":
+        return conv3x3_dgrad_reference(g, k)
+    if g.dim() != 4:
+        raise ValueError(f"conv3x3_dgrad: want 4-D g, got {tuple(g.shape)}")
+    dxp = _launch_conv("conv3x3_dgrad", _pad2(g.contiguous()),
+                       _flip_weight(k, g.dtype))
+    conv3x3_dgrad.launches += 1
+    return dxp
+
+
+def _wgrad_split(dtype: torch.dtype, c: int, o: int, pixels: int):
+    """(splits, pixels per split) of the wgrad reduction: enough blocks to
+    fill the card, each split a whole number of the kernel's K' steps."""
+    bm, bn, bk = _WGRAD_TILES[dtype]
+    tiles = -(-9 * c // bm) * -(-o // bn)
+    steps = -(-pixels // bk)
+    want = max(1, min(steps, -(-_WGRAD_TARGET_BLOCKS // tiles)))
+    per = -(-steps // want) * bk
+    return -(-pixels // per), per
+
+
+def conv3x3_wgrad(xp: torch.Tensor, g: torch.Tensor,
+                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """dk of :func:`conv3x3_valid`: xp (B, H+2, W+2, C), g (B, H, W, O) ->
+    (3, 3, C, O) in ``out_dtype``, summed in f32.
+
+    On a CUDA tensor: the split-K kernel of ``csrc/conv3x3_wgrad.cu``, whose
+    f32 partials are summed in fixed order (bit-deterministic);
+    ``conv3x3_wgrad.launches`` counts its launches."""
+    if xp.device.type == "cpu":
+        return conv3x3_wgrad_reference(xp, g).to(out_dtype)
+    b, hp, wp, c = xp.shape
+    if g.dim() != 4 or tuple(g.shape[:3]) != (b, hp - 2, wp - 2):
+        raise ValueError(f"conv3x3_wgrad: g {tuple(g.shape)} does not match "
+                         f"xp {tuple(xp.shape)}")
+    o = g.shape[-1]
+    _check_cuda("conv3x3_wgrad", xp, (3, 3, c, o), g)
+    if g.dtype != xp.dtype:
+        raise ValueError(f"conv3x3_wgrad: g is {g.dtype}, xp {xp.dtype}")
+    if out_dtype not in _DTYPE_CODES:
+        raise ValueError(f"conv3x3_wgrad: unsupported out dtype {out_dtype}")
+    g = g.contiguous()
+    if g.data_ptr() % 16:
+        raise ValueError("conv3x3_wgrad: inputs must be 16-byte aligned")
+    h, w = hp - 2, wp - 2
+    splits, per = _wgrad_split(xp.dtype, c, o, b * h * w)
+    part = torch.empty((splits, 9 * c, o), dtype=torch.float32,
+                       device=xp.device)
+    dk = torch.empty((3, 3, c, o), dtype=out_dtype, device=xp.device)
+    with torch.cuda.device(xp.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _wgrad_lib().councilx_conv3x3_wgrad(
+            xp.data_ptr(), g.data_ptr(), part.data_ptr(), dk.data_ptr(),
+            b, h, w, c, o, _DTYPE_CODES[xp.dtype], _DTYPE_CODES[out_dtype],
+            splits, per, stream)
+    if err != 0:
+        raise RuntimeError(f"conv3x3_wgrad: kernel launch failed with CUDA "
+                           f"error {err}")
+    conv3x3_wgrad.launches += 1
+    return dk
+
+
+class Conv3x3Valid(torch.autograd.Function):
+    """``conv3x3_valid`` with the JAX package's VJP (``_bwd_rule``)."""
+
+    @staticmethod
+    def forward(ctx, xp, k, save: bool):
+        y = _forward(xp, k)
+        if save:
+            ctx.save_for_backward(xp, k)
+            if xp.device.type == "cuda":
+                conv3x3_valid.grad_launches += 1
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        xp, k = ctx.saved_tensors
+        g = g.contiguous()
+        dxp = conv3x3_dgrad(g, k) if ctx.needs_input_grad[0] else None
+        dk = (conv3x3_wgrad(xp, g.to(xp.dtype), k.dtype)
+              if ctx.needs_input_grad[1] else None)
+        return dxp, dk, None
+
+
+def conv3x3_valid(xp: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """VALID 3x3 stride-1 conv: xp (B, H+2, W+2, C) NHWC contiguous,
+    k (3, 3, C, O) HWIO -> (B, H, W, O) in xp's dtype, f32 accumulation;
+    differentiable on every device.
+
+    The caller pads (reflect) and adds the bias, as in the JAX package.
+    ``conv3x3_valid.launches`` counts forward kernel launches, and
+    ``conv3x3_valid.grad_launches`` those of them made under autograd (whose
+    backward launches :func:`conv3x3_dgrad` and :func:`conv3x3_wgrad`)."""
+    save = torch.is_grad_enabled() and (xp.requires_grad or k.requires_grad)
+    return Conv3x3Valid.apply(xp, k, save)
+
+
 conv3x3_valid.launches = 0
+conv3x3_valid.grad_launches = 0
+conv3x3_dgrad.launches = 0
+conv3x3_wgrad.launches = 0

@@ -1,43 +1,91 @@
 """Instance norm with an optional AdaIN affine, on NHWC input.
 
-Counterpart of ``councilx/ops/pallas_norm.py::instance_norm_pallas``
-(forward: ``_fwd_kernel`` and ``_fwd_affine_kernel``). On a CUDA tensor it
-launches the Triton kernel in ``councilx_torch/csrc/instance_norm_triton.py``
-at every shape (the JAX package's VMEM gate is a TPU fact, not semantics);
-on a CPU tensor it runs the plain version :func:`instance_norm_reference`.
-Nothing falls back: a CUDA input the kernel does not take raises.
+Counterpart of ``councilx/ops/pallas_norm.py::instance_norm_pallas`` with
+its custom VJP. :func:`instance_norm` is a ``torch.autograd.Function`` on
+every device:
+
+* forward (``_fwd_kernel``, ``_fwd_affine_kernel``): the Triton kernel in
+  ``councilx_torch/csrc/instance_norm_triton.py`` on a CUDA tensor, at every
+  shape (the JAX package's VMEM gate is a TPU fact, not semantics); it also
+  returns the per-(sample, channel) f32 mean and rstd, as ``_in_core_fwd``
+  does. On a CPU tensor the plain version
+  :func:`instance_norm_forward_reference`.
+* backward (``_bwd_kernel``, ``_bwd_affine_kernel``): from the saved
+  statistics, :func:`instance_norm_backward` -- the Triton backward kernel
+  on CUDA, :func:`instance_norm_backward_reference` on the CPU.
+
+Nothing falls back: a CUDA input the kernels do not take raises.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from councilx_torch.ops import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_TILE = 8192            # elements per (BLOCK_HW, BLOCK_C) tile
+_TILE = 8192            # elements per (BLOCK_HW, BLOCK_C) forward tile
+_BWD_TILE = 4096        # the backward holds two f32 accumulator tiles
 _TARGET_PROGRAMS = 128  # about one program per SM of an H100
+
+Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """f32 statistics for bf16/f32 inputs; f64 stays f64 (gradcheck)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def instance_norm_forward_reference(x: torch.Tensor,
+                                    gamma: Optional[torch.Tensor] = None,
+                                    beta: Optional[torch.Tensor] = None,
+                                    eps: float = 1e-5) -> Stats:
+    """Plain version. x (B, H, W, C); gamma/beta (B, C) or None ->
+    (y, mean (B, C), rstd (B, C)).
+
+    f32 statistics over (H, W): the mean, then the biased variance of the
+    centred values; ``rsqrt(var + eps)``; the affine in f32; one cast back
+    to x's dtype."""
+    x32 = _acc(x)
+    mean = x32.mean(dim=(1, 2))
+    xc = x32 - mean[:, None, None, :]
+    rstd = torch.rsqrt((xc * xc).mean(dim=(1, 2)) + eps)
+    y = xc * rstd[:, None, None, :]
+    if gamma is not None:
+        y = y * _acc(gamma)[:, None, None, :] + _acc(beta)[:, None, None, :]
+    return y.to(x.dtype), mean, rstd
 
 
 def instance_norm_reference(x: torch.Tensor,
                             gamma: Optional[torch.Tensor] = None,
                             beta: Optional[torch.Tensor] = None,
                             eps: float = 1e-5) -> torch.Tensor:
-    """Plain version. x (B, H, W, C); gamma/beta (B, C) or None.
+    """Plain version of the normalized output alone."""
+    return instance_norm_forward_reference(x, gamma, beta, eps)[0]
 
-    f32 statistics over (H, W): the mean, then the biased variance of the
-    centred values; ``rsqrt(var + eps)``; the affine in f32; one cast back
-    to x's dtype."""
-    x32 = x.float()
-    mean = x32.mean(dim=(1, 2), keepdim=True)
-    xc = x32 - mean
-    var = (xc * xc).mean(dim=(1, 2), keepdim=True)
-    y = xc * torch.rsqrt(var + eps)
+
+def instance_norm_backward_reference(dy: torch.Tensor, x: torch.Tensor,
+                                     mean: torch.Tensor, rstd: torch.Tensor,
+                                     gamma: Optional[torch.Tensor] = None):
+    """Plain version of the backward (``pallas_norm.py:121-145``):
+    -> (dx in dy's dtype, dgamma (B, C) f32 or None, dbeta or None).
+
+    x_hat = (x - mean) * rstd; dy' = dy * gamma (or dy);
+    dx = rstd * (dy' - mean(dy') - x_hat * mean(dy' * x_hat));
+    dgamma = sum dy * x_hat, dbeta = sum dy over (H, W)."""
+    dy32, r = _acc(dy), rstd[:, None, None, :]
+    xhat = (_acc(x) - mean[:, None, None, :]) * r
+    dgamma = dbeta = None
     if gamma is not None:
-        y = y * gamma.float()[:, None, None, :] + beta.float()[:, None, None, :]
-    return y.to(x.dtype)
+        dgamma = (dy32 * xhat).sum(dim=(1, 2))
+        dbeta = dy32.sum(dim=(1, 2))
+        dy32 = dy32 * _acc(gamma)[:, None, None, :]
+    m_dy = dy32.mean(dim=(1, 2), keepdim=True)
+    m_dyx = (dy32 * xhat).mean(dim=(1, 2), keepdim=True)
+    dx = r * (dy32 - m_dy - xhat * m_dyx)
+    return dx.to(dy.dtype), dgamma, dbeta
 
 
 def _block_c(b: int, c: int) -> int:
@@ -49,52 +97,140 @@ def _block_c(b: int, c: int) -> int:
     return bc
 
 
-def instance_norm(x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
-                  beta: Optional[torch.Tensor] = None,
-                  eps: float = 1e-5) -> torch.Tensor:
-    """Instance norm over (H, W) of NHWC x, then ``* gamma + beta`` per
-    (sample, channel) when given ((B, C), applied in f32).
-
-    ``instance_norm.launches`` counts kernel launches;
-    ``instance_norm.affine_launches`` those of the affine (AdaIN) variant."""
-    if (gamma is None) != (beta is None):
-        raise ValueError("gamma and beta must be given together")
-    if x.device.type == "cpu":
-        return instance_norm_reference(x, gamma, beta, eps)
+def _check_cuda(name: str, x: torch.Tensor, gamma: Optional[torch.Tensor]):
     if x.device.type != "cuda":
-        raise ValueError(f"instance_norm: unsupported device {x.device}")
+        raise ValueError(f"{name}: unsupported device {x.device}")
     if x.dim() != 4:
-        raise ValueError(f"instance_norm: want NHWC, got {tuple(x.shape)}")
+        raise ValueError(f"{name}: want NHWC, got {tuple(x.shape)}")
     if x.dtype not in _DTYPES:
-        raise ValueError(f"instance_norm: unsupported dtype {x.dtype}")
+        raise ValueError(f"{name}: unsupported dtype {x.dtype}")
     if not x.is_contiguous():
-        raise ValueError("instance_norm: x must be contiguous NHWC")
+        raise ValueError(f"{name}: x must be contiguous NHWC")
     b, h, w, c = x.shape
     if b * h * w * c == 0:
-        raise ValueError(f"instance_norm: empty input {tuple(x.shape)}")
+        raise ValueError(f"{name}: empty input {tuple(x.shape)}")
     if gamma is not None:
-        if gamma.shape != (b, c) or beta.shape != (b, c):
-            raise ValueError(f"instance_norm: gamma/beta must be {(b, c)}, "
-                             f"got {tuple(gamma.shape)}/{tuple(beta.shape)}")
-        if gamma.device != x.device or beta.device != x.device:
-            raise ValueError("instance_norm: gamma/beta on another device")
+        if gamma.shape != (b, c):
+            raise ValueError(f"{name}: gamma/beta must be {(b, c)}, got "
+                             f"{tuple(gamma.shape)}")
+        if gamma.device != x.device:
+            raise ValueError(f"{name}: gamma/beta on another device")
+
+
+def _forward(x, gamma, beta, eps) -> Stats:
+    if x.device.type == "cpu":
+        return instance_norm_forward_reference(x, gamma, beta, eps)
+    _check_cuda("instance_norm", x, gamma)
+    b, h, w, c = x.shape
+    if gamma is not None:
+        if beta.shape != (b, c) or beta.device != x.device:
+            raise ValueError(f"instance_norm: beta must be {(b, c)} on "
+                             f"{x.device}, got {tuple(beta.shape)}")
         gamma = gamma.float().contiguous()
         beta = beta.float().contiguous()
     y = torch.empty_like(x)
+    mean = torch.empty((b, c), dtype=torch.float32, device=x.device)
+    rstd = torch.empty_like(mean)
     kernels = _build.load_triton_module("instance_norm_triton")
     bc = _block_c(b, c)
-    grid = (b, -(-c // bc))
     with torch.cuda.device(x.device):
-        kernels.instance_norm_kernel[grid](
+        kernels.instance_norm_kernel[(b, -(-c // bc))](
             x, y, gamma if gamma is not None else y,
-            beta if beta is not None else y, h * w, c, eps,
+            beta if beta is not None else y, mean, rstd, h * w, c, eps,
             HAS_AFFINE=gamma is not None, BLOCK_HW=_TILE // bc, BLOCK_C=bc,
             num_warps=8)
     instance_norm.launches += 1
     if gamma is not None:
         instance_norm.affine_launches += 1
-    return y
+    return y, mean, rstd
+
+
+def instance_norm_backward(dy: torch.Tensor, x: torch.Tensor,
+                           mean: torch.Tensor, rstd: torch.Tensor,
+                           gamma: Optional[torch.Tensor] = None):
+    """Backward of :func:`instance_norm` from the forward's saved (B, C)
+    f32 statistics: -> (dx in dy's dtype, dgamma, dbeta), the last two
+    (B, C) f32 with the affine and None without.
+
+    On a CUDA tensor: the Triton backward kernel (K5, or K6 with the
+    affine). ``instance_norm_backward.launches`` counts its launches and
+    ``instance_norm_backward.affine_launches`` those with the affine."""
+    if dy.device.type == "cpu":
+        return instance_norm_backward_reference(dy, x, mean, rstd, gamma)
+    _check_cuda("instance_norm_backward", x, gamma)
+    dy = dy.contiguous()
+    if dy.shape != x.shape or dy.device != x.device or dy.dtype not in _DTYPES:
+        raise ValueError(f"instance_norm_backward: dy {tuple(dy.shape)} "
+                         f"{dy.dtype} does not match x {tuple(x.shape)}")
+    b, h, w, c = x.shape
+    dx = torch.empty_like(dy)
+    dgamma = dbeta = None
+    if gamma is not None:
+        gamma = gamma.float().contiguous()
+        dgamma = torch.empty((b, c), dtype=torch.float32, device=x.device)
+        dbeta = torch.empty_like(dgamma)
+    kernels = _build.load_triton_module("instance_norm_triton")
+    bc = _block_c(b, c)
+    with torch.cuda.device(x.device):
+        kernels.instance_norm_bwd_kernel[(b, -(-c // bc))](
+            dy, x, mean.contiguous(), rstd.contiguous(),
+            gamma if gamma is not None else mean, dx,
+            dgamma if dgamma is not None else mean,
+            dbeta if dbeta is not None else mean, h * w, c,
+            HAS_AFFINE=gamma is not None, BLOCK_HW=_BWD_TILE // bc,
+            BLOCK_C=bc, num_warps=8)
+    instance_norm_backward.launches += 1
+    if gamma is not None:
+        instance_norm_backward.affine_launches += 1
+    return dx, dgamma, dbeta
+
+
+class InstanceNorm(torch.autograd.Function):
+    """``instance_norm_pallas`` with the JAX package's VJP (``_in_core``)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps: float, save: bool):
+        y, mean, rstd = _forward(x, gamma, beta, eps)
+        if save:
+            ctx.save_for_backward(x, mean, rstd, gamma)
+            if x.device.type == "cuda":
+                instance_norm.grad_launches += 1
+                if gamma is not None:
+                    instance_norm.affine_grad_launches += 1
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, mean, rstd, gamma = ctx.saved_tensors
+        dx, dgamma, dbeta = instance_norm_backward(dy, x, mean, rstd, gamma)
+        return (dx if ctx.needs_input_grad[0] else None,
+                dgamma if ctx.needs_input_grad[1] else None,
+                dbeta if ctx.needs_input_grad[2] else None, None, None)
+
+
+def instance_norm(x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
+                  beta: Optional[torch.Tensor] = None,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """Instance norm over (H, W) of NHWC x, then ``* gamma + beta`` per
+    (sample, channel) when given ((B, C), applied in f32); differentiable
+    on every device.
+
+    ``instance_norm.launches`` counts forward kernel launches and
+    ``instance_norm.affine_launches`` those of the affine (AdaIN) variant;
+    ``grad_launches``/``affine_grad_launches`` count the ones made under
+    autograd, whose backward launches :func:`instance_norm_backward`."""
+    if (gamma is None) != (beta is None):
+        raise ValueError("gamma and beta must be given together")
+    if gamma is not None:
+        gamma, beta = _acc(gamma), _acc(beta)
+    save = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, gamma, beta))
+    return InstanceNorm.apply(x, gamma, beta, eps, save)
 
 
 instance_norm.launches = 0
 instance_norm.affine_launches = 0
+instance_norm.grad_launches = 0
+instance_norm.affine_grad_launches = 0
+instance_norm_backward.launches = 0
+instance_norm_backward.affine_launches = 0

@@ -13,11 +13,16 @@ import numpy as np
 import pytest
 import torch
 
-from councilx_torch.config import load_config
+from councilx_torch.config import Config, load_config
 from councilx_torch.inference.translate import Translator
-from councilx_torch.ops.conv3x3 import conv3x3_valid, conv3x3_valid_reference
-from councilx_torch.ops.instance_norm import (instance_norm,
-                                              instance_norm_reference)
+from councilx_torch.ops.conv3x3 import (conv3x3_dgrad,
+                                        conv3x3_dgrad_reference,
+                                        conv3x3_valid, conv3x3_valid_reference,
+                                        conv3x3_wgrad, conv3x3_wgrad_reference)
+from councilx_torch.ops.instance_norm import (
+    instance_norm, instance_norm_backward, instance_norm_backward_reference,
+    instance_norm_forward_reference, instance_norm_reference)
+from councilx_torch.train.trainer import CouncilTrainer
 
 pytestmark = pytest.mark.cuda
 
@@ -105,3 +110,140 @@ def test_translate_on_gpu_matches_cpu_and_runs_the_kernels(cuda):
     assert instance_norm.launches - norm0 == 11
     # f32 through ~20 layers, TF32 off, sums in another order
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# backward kernels and the autograd Functions on the card
+# ---------------------------------------------------------------------------
+
+
+def _close(got, want, rel):
+    """max |got - want| <= rel * max |want|."""
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= rel * want.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_autograd_through_the_kernels_matches_plain(cuda, dtype):
+    """The autograd Functions launch the kernels forward and backward on
+    the card, and their gradients equal those of the plain versions."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    xp = torch.randn(2, 10, 9, 16, device=cuda, generator=g).to(dtype)
+    k = (torch.randn(3, 3, 16, 24, device=cuda, generator=g) / 12).to(dtype)
+    gy = torch.randn(2, 8, 7, 24, device=cuda, generator=g).to(dtype)
+    xk = [t.clone().requires_grad_() for t in (xp, k)]
+    counts = (conv3x3_valid.grad_launches, conv3x3_dgrad.launches,
+              conv3x3_wgrad.launches)
+    got = torch.autograd.grad(conv3x3_valid(*xk), xk, gy)
+    assert (conv3x3_valid.grad_launches, conv3x3_dgrad.launches,
+            conv3x3_wgrad.launches) == tuple(c + 1 for c in counts)
+    assert all(t is not None for t in got)
+    xk = [t.float().clone().requires_grad_() for t in (xp, k)]
+    want = torch.autograd.grad(conv3x3_valid_reference(*xk), xk, gy.float())
+    # bf16: each side rounds an f32 sum once; f32: sums in another order
+    rel = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+    for a, b in zip(got, want):
+        _close(a, b, rel)
+
+    x = (torch.randn(2, 5, 7, 24, device=cuda, generator=g) * 3 + 1).to(dtype)
+    dy = torch.randn(2, 5, 7, 24, device=cuda, generator=g).to(dtype)
+    for affine in (False, True):
+        args = ([torch.randn(2, 24, device=cuda, generator=g)
+                 for _ in range(2)] if affine else [])
+        ins = [t.clone().requires_grad_() for t in [x] + args]
+        before = instance_norm_backward.launches
+        got = torch.autograd.grad(instance_norm(*ins), ins, dy)
+        assert instance_norm_backward.launches == before + 1
+        assert all(t is not None for t in got)
+        ins = [t.float().clone().requires_grad_() for t in [x] + args]
+        want = torch.autograd.grad(instance_norm_reference(*ins), ins,
+                                   dy.float())
+        for a, b in zip(got, want):
+            # bf16: dx rounds once from f32; f32: sums over HW reordered
+            _close(a, b, 2 ** -6 if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,w,c,o", [(8, 64, 64, 256, 256),
+                                       (1, 5, 7, 16, 24), (3, 9, 3, 8, 136)])
+def test_conv3x3_backward_kernels_match_plain(cuda, dtype, b, h, w, c, o):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    xp = torch.randn(b, h + 2, w + 2, c, device=cuda, generator=g).to(dtype)
+    k = (torch.randn(3, 3, c, o, device=cuda, generator=g)
+         / (9 * c) ** 0.5).to(dtype)
+    gy = torch.randn(b, h, w, o, device=cuda, generator=g).to(dtype)
+    # dgrad: the forward kernel on the padded cotangent, one rounding
+    _close(conv3x3_dgrad(gy, k), conv3x3_dgrad_reference(gy.float(),
+                                                         k.float()),
+           2 ** -7 if dtype == torch.bfloat16 else 1e-5)
+    # wgrad: f32 sums of B*H*W products in another order, then (bf16) one
+    # rounding of the result to the weight's dtype
+    want = conv3x3_wgrad_reference(xp, gy)
+    _close(conv3x3_wgrad(xp, gy, dtype), want,
+           2 ** -7 if dtype == torch.bfloat16 else 1e-4)
+    _close(conv3x3_wgrad(xp, gy), want, 1e-4)
+
+
+def test_conv3x3_wgrad_is_deterministic(cuda):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    xp = torch.randn(8, 66, 66, 256, device=cuda, generator=g).bfloat16()
+    gy = torch.randn(8, 64, 64, 256, device=cuda, generator=g).bfloat16()
+    a = conv3x3_wgrad(xp, gy, torch.bfloat16)
+    b = conv3x3_wgrad(xp, gy, torch.bfloat16)
+    assert torch.equal(a, b)
+    assert torch.equal(conv3x3_wgrad(xp.float(), gy.float()),
+                       conv3x3_wgrad(xp.float(), gy.float()))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(8, 64, 64, 256), (2, 32, 32, 64),
+                                   (2, 5, 7, 24)])
+@pytest.mark.parametrize("affine", [False, True])
+def test_instance_norm_backward_kernel_matches_plain(cuda, dtype, shape,
+                                                     affine):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = (torch.randn(*shape, device=cuda, generator=g) * 3 + 1).to(dtype)
+    dy = torch.randn(*shape, device=cuda, generator=g).to(dtype)
+    gm = (torch.randn(shape[0], shape[3], device=cuda, generator=g)
+          if affine else None)
+    _, mean, rstd = instance_norm_forward_reference(x, gm, gm)
+    got = instance_norm_backward(dy, x, mean, rstd, gm)
+    want = instance_norm_backward_reference(dy, x, mean, rstd, gm)
+    # bf16: dx rounds once from f32 on both sides; f32: sums over HW in
+    # another order, through a difference of like terms
+    _close(got[0], want[0], 2 ** -6 if dtype == torch.bfloat16 else 1e-4)
+    if affine:
+        _close(got[1], want[1], 1e-4)
+        _close(got[2], want[2], 1e-4)
+    else:
+        assert got[1] is None and got[2] is None
+
+
+def test_train_step_on_gpu_matches_cpu(cuda):
+    """Two steps of the tiny council-2 config in f32 (parity mode) on the
+    card and on the CPU, from the same weights, batch and z."""
+    raw = {"batch_size": 2, "lr": 1e-4, "parity_mode": True,
+           "compute_dtype": "float32",
+           "gen": {"dim": 8, "mlp_dim": 16, "style_dim": 3,
+                   "n_downsample": 2, "n_res": 2},
+           "dis": {"dim": 8, "n_layer": 2, "num_scales": 2},
+           "council": {"council_size": 2, "council_w": 0.2},
+           "data": {"crop_image_height": 32, "crop_image_width": 32}}
+    cfg = Config.from_dict(raw)
+    cpu = CouncilTrainer(cfg)
+    cpu_state = cpu.init_state(seed=0)
+    gpu = CouncilTrainer(cfg, device=cuda)
+    gpu_state = gpu.load_state(cpu_state.state_dicts())
+    r = np.random.default_rng(0)
+    x_a, x_b = (r.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
+                for _ in range(2))
+    before = conv3x3_wgrad.launches
+    for _ in range(2):
+        zs = cpu.draw_zs(cpu_state, 2)
+        cpu_state, want = cpu.train_step(cpu_state, x_a, x_b, zs=zs)
+        gpu_state, got = gpu.train_step(gpu_state, x_a, x_b, zs=zs)
+        for k in want:
+            # f32, TF32 off, sums in another order through ~40 layers
+            np.testing.assert_allclose(float(got[k]), float(want[k]),
+                                       rtol=1e-4, err_msg=k)
+    assert conv3x3_wgrad.launches > before
