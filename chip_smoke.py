@@ -13,8 +13,12 @@ Phases, in order; any failure raises and exits non-zero:
    from the checkout's sources;
 3. each kernel against its plain PyTorch version on the card, at the
    serving and training paths' shapes, in bf16 and f32 (TF32 off for the
-   plain versions): max abs error against a stated tolerance, median
-   times; the wgrad kernel twice, bit-equal;
+   plain versions): max abs error against a stated tolerance; median
+   device times (:func:`device_ms`) of the kernel, its plain version and
+   one PyTorch library call that computes the same function (a yardstick
+   the port never calls), and the least time the card could take
+   (:func:`bound_ms`); the conv's host time per call; the wgrad kernel
+   twice, bit-equal;
 4. the serving slice at full width (council-4, 256px, dim 64, n_res 4,
    bf16, random weights from a seed): 4 members saved as a reference
    ``.pt``, loaded through ``councilx_torch.cli.serve.build_engine``,
@@ -45,15 +49,18 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from councilx_torch.cli.serve import build_engine
 from councilx_torch.config import Config
 from councilx_torch.inference.translate import Translator
 from councilx_torch.ops import _build
+from councilx_torch.ops import conv3x3 as conv_ops
 from councilx_torch.ops.conv3x3 import (conv3x3_dgrad,
                                         conv3x3_dgrad_reference,
                                         conv3x3_valid, conv3x3_valid_reference,
-                                        conv3x3_wgrad, conv3x3_wgrad_reference)
+                                        conv3x3_wgrad, conv3x3_wgrad_reference,
+                                        hwio_weight)
 from councilx_torch.ops.instance_norm import (
     instance_norm, instance_norm_backward, instance_norm_backward_reference,
     instance_norm_forward_reference, instance_norm_reference)
@@ -112,6 +119,50 @@ REDUCED = {
 }
 
 
+# the card's peak rates (NVIDIA H100 SXM data sheet, dense, at the full
+# 700 W): bf16 on the tensor cores, f32 on the FMA units, device memory
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_BYTES = 3.35e12
+CONV_KERNELS = ("conv3x3", "conv3x3_dgrad", "conv3x3_wgrad")
+# per norm kernel: f32 operations per element (counted from the plain
+# versions' arithmetic), full-size tensors moved (x and y; dy, x and dx)
+# and f32 per-(sample, channel) vectors moved (mean and rstd; gamma and
+# beta in for AdaIN; dgamma and dbeta out of its backward)
+NORM_WORK = {"instance_norm": (5, 2, 2), "adain": (7, 2, 4),
+             "instance_norm_bwd": (11, 3, 2), "adain_bwd": (13, 3, 5)}
+
+
+def kernel_work(name: str, shape, esize: int = 2):
+    """(operations, bytes, peak type) of one call of kernel ``name``, with
+    each input read once and each output written once.
+
+    Conv kernels: ``shape`` is (B, H, W, C, O) of the forward conv, xp
+    (B, H+2, W+2, C) x k (3, 3, C, O) -> y (B, H, W, O); the dgrad reads g
+    (B, H, W, O) and k and writes d(xp), the wgrad reads xp and g and
+    writes dk: the same three tensors and the same 2*B*H*W*9C*O operations
+    (the dgrad's padded form would run 2*B*(H+2)*(W+2)*9*O*C). Norm
+    kernels: ``shape`` is (B, H, W, C)."""
+    if name in CONV_KERNELS:
+        b, h, w, c, o = shape
+        ops = 2 * b * h * w * 9 * c * o
+        elems = b * (h + 2) * (w + 2) * c + b * h * w * o + 9 * c * o
+        return ops, esize * elems, "bf16" if esize == 2 else "f32"
+    b, h, w, c = shape
+    per_elem, full, vectors = NORM_WORK[name]
+    return (per_elem * b * h * w * c,
+            esize * full * b * h * w * c + 4 * vectors * b * c, "f32")
+
+
+def bound_ms(name: str, shape, esize: int = 2):
+    """(ms, "operations" or "bytes"): the least time the card could take
+    for one call, the larger of its operations over the peak rate of
+    their type and its bytes over the memory rate."""
+    ops, nbytes, kind = kernel_work(name, shape, esize)
+    t_ops, t_bytes = ops / PEAK_OPS[kind], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
 def log(*a):
     print(*a, flush=True)
 
@@ -137,19 +188,89 @@ def median_ms(fn, reps: int = 15) -> list:
     return out
 
 
-def time_pair(kernel, plain):
-    """Median ms of kernel and plain, timed in turns: plain, kernel,
-    kernel, plain (after one warm launch each)."""
-    kernel(), plain()
+def device_ms(fn, reps: int = 10, calls: int = 10) -> list:
+    """Device ms per call of fn, from CUDA events around ``calls`` calls.
+
+    A sleep kernel first holds the card for about twice the host time of
+    those calls, so they are all enqueued before the start event runs and
+    the events bracket device work only: a kernel wrapper's host time
+    (~50 us) is as long as a fast kernel, and would otherwise be timed as
+    idle card."""
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    p = median_ms(plain)
-    k = median_ms(kernel) + median_ms(kernel)
-    p += median_ms(plain)
-    return float(np.median(k)), float(np.median(p))
+    cycles = int(2e9 * (2 * calls * host_s + 1e-4))   # at <= 2 GHz
+    out = []
+    for _ in range(reps):
+        torch.cuda._sleep(cycles)
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(calls):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        out.append(s.elapsed_time(e) / calls)
+    return out
+
+
+def time_turns(kernel, *others):
+    """Median device ms of kernel and of each other function, timed in
+    turns: the others, kernel, kernel, the others in reverse (after one
+    warm launch each)."""
+    kernel()
+    for fn in others:
+        fn()
+    torch.cuda.synchronize()
+    times = [device_ms(fn) for fn in others]
+    k = device_ms(kernel) + device_ms(kernel)
+    for i in reversed(range(len(others))):
+        times[i] += device_ms(others[i])
+    return [float(np.median(k))] + [float(np.median(t)) for t in times]
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Host microseconds per call to enqueue fn (no synchronisation
+    inside the n calls)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / n
+    torch.cuda.synchronize()
+    return us
+
+
+def conv_host_times(xp: torch.Tensor, k: torch.Tensor, gy: torch.Tensor,
+                    card_str: str):
+    """Host us per call of the bf16 conv: through its wrappers (forward,
+    dgrad), and of the kernel library's entry point alone (the forward's
+    three tensor-map encodes and its launch); the rest of a wrapper call is
+    PyTorch's."""
+    fwd = host_us(lambda: conv3x3_valid(xp, k))
+    dgrad = host_us(lambda: conv3x3_dgrad(gy, k))
+    b, hp, wp, c = xp.shape
+    wk = conv_ops._kernel_weight(k, xp.dtype)
+    y = torch.empty(b, hp - 2, wp - 2, wk.shape[2], dtype=xp.dtype,
+                    device=xp.device)
+    entry = conv_ops._conv_lib().councilx_conv3x3
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = host_us(lambda: entry(xp.data_ptr(), wk.data_ptr(), y.data_ptr(),
+                                b, hp, wp, c, wk.shape[2], 0, 0, 1, stream))
+    log(f"[kernels] conv3x3 bf16 host time per call: forward wrapper "
+        f"{fwd:.6g} us, dgrad wrapper {dgrad:.6g} us; the library's entry "
+        f"point alone (three encodes and the launch) {lib:.6g} us "
+        f"[{card_str}]")
 
 
 def phase_kernels(g: torch.Generator, card_str: str) -> dict:
-    """Phase 3: every kernel vs its plain version at the paths' shapes.
+    """Phase 3: every kernel vs its plain version at the paths' shapes,
+    with its library call and its bound beside it. The conv weight k is
+    made as the model's blocks make it (``hwio_weight`` of an OIHW
+    weight), so the conv wrappers' times include what they copy on the
+    path.
 
     Tolerances, relative to the largest |plain| value m:
       bf16: 2**-6 * m (conv3x3, dgrad, norms) -- both sides sum in f32 and
@@ -165,7 +286,21 @@ def phase_kernels(g: torch.Generator, card_str: str) -> dict:
       f32 wgrad: 1e-4 * m -- f32 sums of 32768 terms in another order;
       f32 norm forward: 1e-5 * m -- f32 sums over HW in another order;
       f32 norm backward: 1e-4 * m -- f32 sums over HW (up to 65536) in
-            another order, then a difference of like terms."""
+            another order, then a difference of like terms.
+
+    Library calls (cuDNN and ATen; the port never calls them), on the
+    NCHW views of the same NHWC tensors:
+      conv3x3: F.conv2d with the weight in channels-last OIHW;
+      conv3x3_dgrad / conv3x3_wgrad: aten.convolution_backward from the
+            unpadded g with output_mask [True, False, False] / [False,
+            True, False];
+      instance_norm: F.instance_norm;
+      adain: F.instance_norm on x reshaped to (1, B*C, H, W) with the
+            flattened per-(sample, channel) gamma and beta, as MUNIT's
+            AdaptiveInstanceNorm2d computes it -- the reshape's NCHW copy
+            is part of the timed call;
+      instance_norm_bwd / adain_bwd: the autograd backward of those two
+            calls (only the backward is timed)."""
     results = {}
     tol_rel = {("conv", torch.bfloat16): 2 ** -6,
                ("conv", torch.float32): 1e-4,
@@ -178,36 +313,62 @@ def phase_kernels(g: torch.Generator, card_str: str) -> dict:
     cases = []
     norm_shapes = ((BATCH, 64, 64, 256), (BATCH, 128, 128, 128),
                    (BATCH, 256, 256, 64))
+    conv_shape = (BATCH, 64, 64, 256, 256)
     for dt in (torch.bfloat16, torch.float32):
         xp = torch.randn(BATCH, 66, 66, 256, device="cuda",
                          generator=g).to(dt)
-        k = (torch.randn(3, 3, 256, 256, device="cuda", generator=g)
-             / 48.0).to(dt)
+        k = hwio_weight(torch.randn(256, 256, 3, 3, device="cuda",
+                                    generator=g) / 48.0, dt)
         gy = torch.randn(BATCH, 64, 64, 256, device="cuda",
                          generator=g).to(dt)
-        cases.append(("conv3x3", "conv", dt, tuple(xp.shape),
+        xn, gn = xp.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2)
+        wn = k.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
+
+        def conv_bwd(mask, gn=gn, xn=xn, wn=wn):
+            return lambda: torch.ops.aten.convolution_backward(
+                gn, xn, wn, None, [1, 1], [0, 0], [1, 1], False, [0, 0], 1,
+                mask)
+
+        cases.append(("conv3x3", "conv", dt, tuple(xp.shape), conv_shape,
                       lambda xp=xp, k=k: conv3x3_valid(xp, k),
-                      lambda xp=xp, k=k: conv3x3_valid_reference(xp, k)))
+                      lambda xp=xp, k=k: conv3x3_valid_reference(xp, k),
+                      lambda xn=xn, wn=wn: F.conv2d(xn, wn)))
         cases.append(("conv3x3_dgrad", "conv", dt, tuple(gy.shape),
+                      conv_shape,
                       lambda gy=gy, k=k: conv3x3_dgrad(gy, k),
-                      lambda gy=gy, k=k: conv3x3_dgrad_reference(gy, k)))
+                      lambda gy=gy, k=k: conv3x3_dgrad_reference(gy, k),
+                      conv_bwd([True, False, False])))
         cases.append(("conv3x3_wgrad", "wgrad", dt, tuple(xp.shape),
+                      conv_shape,
                       lambda xp=xp, gy=gy, dt=dt: conv3x3_wgrad(xp, gy, dt),
-                      lambda xp=xp, gy=gy: conv3x3_wgrad_reference(xp, gy)))
+                      lambda xp=xp, gy=gy: conv3x3_wgrad_reference(xp, gy),
+                      conv_bwd([False, True, False])))
+        if dt == torch.bfloat16:
+            conv_host_times(xp, k, gy, card_str)
         for shape in norm_shapes[::2]:
             x = (torch.randn(*shape, device="cuda", generator=g) * 3
                  + 1).to(dt)
-            cases.append(("instance_norm", "norm", dt, shape,
+            cases.append(("instance_norm", "norm", dt, shape, shape,
                           lambda x=x: instance_norm(x),
-                          lambda x=x: instance_norm_reference(x)))
+                          lambda x=x: instance_norm_reference(x),
+                          lambda x=x: F.instance_norm(
+                              x.permute(0, 3, 1, 2), eps=1e-5)))
         x = (torch.randn(BATCH, 64, 64, 256, device="cuda", generator=g) * 3
              + 1).to(dt)
         gm = torch.randn(BATCH, 256, device="cuda", generator=g)
         bt = torch.randn(BATCH, 256, device="cuda", generator=g)
-        cases.append(("adain", "norm", dt, tuple(x.shape),
+
+        def adain_lib(x, gm, bt):
+            b, h, w, c = x.shape
+            return F.instance_norm(
+                x.permute(0, 3, 1, 2).reshape(1, b * c, h, w),
+                weight=gm.flatten(), bias=bt.flatten(), eps=1e-5)
+
+        cases.append(("adain", "norm", dt, tuple(x.shape), tuple(x.shape),
                       lambda x=x, gm=gm, bt=bt: instance_norm(x, gm, bt),
                       lambda x=x, gm=gm, bt=bt: instance_norm_reference(
-                          x, gm, bt)))
+                          x, gm, bt),
+                      lambda x=x, gm=gm, bt=bt: adain_lib(x, gm, bt)))
         for shape in norm_shapes:
             x = (torch.randn(*shape, device="cuda", generator=g) * 3
                  + 1).to(dt)
@@ -215,14 +376,29 @@ def phase_kernels(g: torch.Generator, card_str: str) -> dict:
             affine = shape == norm_shapes[0]
             for gmm in ((None, gm) if affine else (None,)):
                 _, mean, rstd = instance_norm_forward_reference(x, gmm, gmm)
+                # the library call's graph, built once; its backward timed
+                leaves = [x.detach().clone().requires_grad_()]
+                if gmm is None:
+                    out = F.instance_norm(leaves[0].permute(0, 3, 1, 2),
+                                          eps=1e-5)
+                    dyl = dy.permute(0, 3, 1, 2)
+                else:
+                    leaves += [gmm.clone().requires_grad_(),
+                               gmm.clone().requires_grad_()]
+                    out = adain_lib(*leaves)
+                    b, h, w, c = shape
+                    dyl = dy.permute(0, 3, 1, 2).reshape(1, b * c, h, w)
                 cases.append((
                     "adain_bwd" if gmm is not None else "instance_norm_bwd",
-                    "norm_bwd", dt, shape,
+                    "norm_bwd", dt, shape, shape,
                     lambda dy=dy, x=x, m=mean, r=rstd, gmm=gmm:
                         instance_norm_backward(dy, x, m, r, gmm),
                     lambda dy=dy, x=x, m=mean, r=rstd, gmm=gmm:
-                        instance_norm_backward_reference(dy, x, m, r, gmm)))
-    for name, kind, dt, shape, kern, plain in cases:
+                        instance_norm_backward_reference(dy, x, m, r, gmm),
+                    lambda out=out, leaves=leaves, dyl=dyl:
+                        torch.autograd.grad(out, leaves, dyl,
+                                            retain_graph=True)))
+    for name, kind, dt, shape, work, kern, plain, library in cases:
         got = kern()
         torch.cuda.synchronize()
         ref = plain()
@@ -235,12 +411,16 @@ def phase_kernels(g: torch.Generator, card_str: str) -> dict:
         tols = [tol_rel[(kind, dt)] * b.float().abs().max().item()
                 for _, b in pairs]
         err = max(errs)
-        ms, plain_ms = time_pair(kern, plain)
+        ms, plain_ms, library_ms = time_turns(kern, plain, library)
+        esize = 2 if dt == torch.bfloat16 else 4
+        bms, bound_by = bound_ms(name, work, esize)
         dname = "bf16" if dt == torch.bfloat16 else "f32"
         log(f"[kernels] {name} {dname} {shape}: max_abs_err "
             f"{' '.join(f'{e:.6g}' for e in errs)} (tol "
             f"{' '.join(f'{t:.6g}' for t in tols)}) kernel {ms:.6g} ms "
-            f"plain {plain_ms:.6g} ms [{card_str}]")
+            f"plain {plain_ms:.6g} ms library {library_ms:.6g} ms bound "
+            f"{bms:.6g} ms ({bound_by}), {100 * bms / ms:.4g}% of it "
+            f"[{card_str}]")
         if not all(e <= t for e, t in zip(errs, tols)):
             raise AssertionError(f"{name} {dname} {shape}: max_abs_err "
                                  f"{errs} > tol {tols}")
@@ -250,8 +430,10 @@ def phase_kernels(g: torch.Generator, card_str: str) -> dict:
                 raise AssertionError(f"conv3x3_wgrad {dname}: two launches "
                                      f"on the same inputs differ")
             log(f"[kernels] conv3x3_wgrad {dname}: two launches bit-equal")
-        results[(name, dname, shape)] = {"max_abs_err": err, "ms": ms,
-                                         "plain_ms": plain_ms}
+        results[(name, dname, shape)] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bms, "bound_by": bound_by,
+            "bound_share": bms / ms}
     return results
 
 
@@ -535,7 +717,7 @@ def phase_train_accuracy(card_str: str):
     x_a, x_b = (rng.uniform(-1, 1, (b, hw, hw, 3)).astype(np.float32)
                 for _ in range(2))
     cfg32 = Config.from_dict({**REDUCED, "parity_mode": True})
-    cpu = CouncilTrainer(cfg32)
+    cpu = CouncilTrainer(cfg32, device="cpu")
     cpu_state = cpu.init_state(seed=1)
     sds = cpu_state.state_dicts()
     zs_steps = [cpu.draw_zs(cpu_state, b) for _ in range(2)]

@@ -56,12 +56,11 @@ def _not_ported(flag: str) -> SystemExit:
 def build_engine(cfg, checkpoint: str, member, direction: str,
                  max_batch: int, max_delay_ms: float, data_parallel: int = 0,
                  warmup: bool = True, calibration: str = None,
-                 member_parallel: int = 0, device=None):
-    """Load ``checkpoint``, build the translator on ``device`` (default:
-    cuda when available) and start a BatchingEngine serving ``member`` (an
+                 member_parallel: int = 0, device="cuda"):
+    """Load ``checkpoint``, build the translator on ``device`` (default: the
+    card; without one this raises -- serving on the CPU takes
+    ``device="cpu"``) and start a BatchingEngine serving ``member`` (an
     index, or "all" for the council ensemble)."""
-    import torch
-
     from councilx_torch.ckpt.manager import load_generator_state_dicts
     from councilx_torch.inference.server import BatchingEngine
     from councilx_torch.inference.translate import Translator
@@ -72,8 +71,6 @@ def build_engine(cfg, checkpoint: str, member, direction: str,
         raise _not_ported("--member_parallel")
     if calibration:
         raise _not_ported("--calibration")
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
     translator = Translator(cfg, device=device)
     state_dicts = load_generator_state_dicts(checkpoint, cfg, direction)
     all_members = member == "all"
@@ -213,8 +210,8 @@ def main(argv=None):
     p.add_argument("--port", type=int, default=8766)
     p.add_argument("--max_batch", type=int, default=64)
     p.add_argument("--max_delay_ms", type=float, default=5.0)
-    p.add_argument("--device", default=None,
-                   help="torch device (default: cuda when available)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default: cuda; cpu serves on the CPU)")
     p.add_argument("--no_warmup", action="store_true")
     p.add_argument("--data_parallel", type=int, default=0,
                    help="not ported yet")

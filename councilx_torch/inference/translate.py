@@ -40,9 +40,11 @@ def _unit_from_u8(x_u8: torch.Tensor) -> torch.Tensor:
 
 
 class Translator:
-    """The generator definition and translate functions for one config."""
+    """The generator definition and translate functions for one config, on
+    ``device``: the card unless the caller asks for another device (the
+    CPU tests pass ``device="cpu"``)."""
 
-    def __init__(self, cfg: Config, device: Union[str, torch.device] = "cpu"):
+    def __init__(self, cfg: Config, device: Union[str, torch.device] = "cuda"):
         if cfg.quant != "none" and not cfg.parity_mode:
             raise NotImplementedError(
                 f"quant={cfg.quant!r} is not ported yet to councilx_torch; "

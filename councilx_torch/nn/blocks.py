@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from councilx_torch.ops.conv3x3 import conv3x3_valid
+from councilx_torch.ops.conv3x3 import conv3x3_valid, hwio_weight
 from councilx_torch.ops.instance_norm import instance_norm
 
 AdaINPair = Tuple[torch.Tensor, torch.Tensor]
@@ -388,12 +388,11 @@ class Conv2dBlock(nn.Module):
     def forward(self, x: torch.Tensor,
                 adain_params: Optional[AdaINPair] = None) -> torch.Tensor:
         x = pad2d(x, self.padding, self.pad_type)
-        w = self.conv.weight.to(x.dtype)
         b = self.conv.bias.to(x.dtype)
         if self.kernel_site:
-            y = conv3x3_valid(x, w.permute(2, 3, 1, 0)) + b   # OIHW -> HWIO
+            y = conv3x3_valid(x, hwio_weight(self.conv.weight, x.dtype)) + b
         else:
-            y = _conv_nhwc(x, w, b, self.stride)
+            y = _conv_nhwc(x, self.conv.weight.to(x.dtype), b, self.stride)
         if self.norm_type == "in":
             y = apply_instance_norm(y)
         elif self.norm_type == "ln":

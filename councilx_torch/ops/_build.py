@@ -3,8 +3,9 @@
 CUDA sources (``councilx_torch/csrc/*.cu``) have a plain C interface. They
 are compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library
 under ``build/councilx_torch_kernels/`` beside the package and loaded with
-``ctypes``. The library's name carries a hash of the source and the flags,
-so an edited source is never served by a stale build.
+``ctypes``. The library's name carries a hash of the source, of every
+header in ``csrc/`` (``*.cuh``, ``*.h``) and of the flags, so an edited
+source or header is never served by a stale build.
 
 Triton kernels live in ``councilx_torch/csrc/*_triton.py`` and are imported
 from there at first use, because ``triton`` exists only where there is a
@@ -18,6 +19,7 @@ There is no fallback: a failed build raises.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import importlib.util
 import os
@@ -55,11 +57,15 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    """The build of ``csrc/<name>.cu``, named by a hash of the source, the
+    headers a source may include and the flags."""
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+                     + glob.glob(os.path.join(CSRC_DIR, "*.h")))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(CSRC_DIR, f"{name}.cu")] + headers:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
 def _compile(names) -> None:

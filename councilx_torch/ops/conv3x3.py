@@ -6,11 +6,16 @@ device:
 
 * forward: the hand-written Hopper kernel in ``csrc/conv3x3.cu`` on a CUDA
   tensor, :func:`conv3x3_valid_reference` on a CPU tensor;
-* backward (``_bwd_rule``): d(xp) by :func:`conv3x3_dgrad` -- the forward
-  kernel run on the cotangent, zero-padded by 2, with the flipped,
-  in/out-swapped weight -- and dk by :func:`conv3x3_wgrad`, the kernel in
+* backward (``_bwd_rule``): d(xp) by :func:`conv3x3_dgrad` -- the same
+  kernel run on the unpadded cotangent with a zero pad of 2 that its TMA
+  loads supply, reading the forward's weight as the flipped, in/out-swapped
+  one -- and dk by :func:`conv3x3_wgrad`, the kernel in
   ``csrc/conv3x3_wgrad.cu`` (f32 sums, returned in k's dtype). On CPU
   tensors both run their plain versions.
+
+Both conv calls take the kernel weight :func:`_kernel_weight` makes from
+k, a relayout copy unless k is laid out as :func:`hwio_weight` makes it,
+as the model's blocks do.
 
 Nothing falls back: a CUDA input a kernel does not take raises.
 """
@@ -25,8 +30,7 @@ import torch.nn.functional as F
 from councilx_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_GRID_Y = 65535
-_MIN_TILE_M = 64        # the f32 kernel's rows per block (bf16: 128)
+_MAX_PIXELS = 2 ** 31 - 1   # output pixels: the kernels index them in int32
 # wgrad tiles (rows of the (9C, O) result, outputs, pixels per K' step) of
 # csrc/conv3x3_wgrad.cu, and about how many blocks fill the card
 _WGRAD_TILES = {torch.bfloat16: (128, 128, 32), torch.float32: (64, 64, 16)}
@@ -78,14 +82,32 @@ def conv3x3_wgrad_reference(xp: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return torch.stack(taps).reshape(3, 3, c, o)
 
 
+def hwio_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """An OIHW (O, C, 3, 3) conv weight as k (3, 3, C, O) HWIO in dtype, in
+    one copy: a view of the contiguous (3, 3, O, C) tensor that is the
+    kernel weight of both conv calls, so they copy it no further."""
+    wk = w.permute(2, 3, 0, 1).to(dtype,
+                                  memory_format=torch.contiguous_format)
+    return wk.contiguous().transpose(2, 3)
+
+
+def _kernel_weight(k: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(3, 3, C, O) HWIO -> the conv kernel's (3, 3, O, C) weight in dtype:
+    per tap, one row of input channels per output channel. The forward
+    reads it so; the dgrad reads it with the taps flipped and transposed,
+    which is the flipped, in/out-swapped weight. No copy when
+    ``k.transpose(2, 3)`` is already contiguous in dtype."""
+    return k.to(dtype).transpose(2, 3).contiguous()
+
+
 def _conv_lib() -> ctypes.CDLL:
     lib = _build.load_cuda_library("conv3x3")
-    fn = lib.councilx_conv3x3_valid
+    fn = lib.councilx_conv3x3
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -103,9 +125,11 @@ def _wgrad_lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_cuda(name: str, xp: torch.Tensor, k_shape, other: torch.Tensor):
+def _check_cuda(name: str, xp: torch.Tensor, k_shape, other: torch.Tensor,
+                pad: int = 0):
     """The kernels' gate: 4-D contiguous 16-byte aligned NHWC on one CUDA
-    device, a (3, 3, C, O) weight, C and O multiples of 8."""
+    device, a (3, 3, C, O) weight, C and O multiples of 8, a non-empty
+    output of xp zero-padded by ``pad``."""
     if xp.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {xp.device}")
     if xp.dim() != 4 or len(k_shape) != 4:
@@ -118,7 +142,7 @@ def _check_cuda(name: str, xp: torch.Tensor, k_shape, other: torch.Tensor):
                          f"input channels {c}")
     if c % 8 or o % 8:
         raise ValueError(f"{name}: C={c} and O={o} must be multiples of 8")
-    if hp < 3 or wp < 3 or b < 1:
+    if min(hp, wp) + 2 * pad < 3 or b < 1:
         raise ValueError(f"{name}: empty output for {tuple(xp.shape)}")
     if xp.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: unsupported dtype {xp.dtype}")
@@ -131,25 +155,32 @@ def _check_cuda(name: str, xp: torch.Tensor, k_shape, other: torch.Tensor):
         raise ValueError(f"{name}: inputs must be 16-byte aligned")
 
 
-def _launch_conv(name: str, xp: torch.Tensor, k: torch.Tensor
-                 ) -> torch.Tensor:
-    """The conv3x3.cu kernel on CUDA xp and k: (B, H+2, W+2, C) x (3, 3, C,
-    O) -> (B, H, W, O)."""
-    _check_cuda(name, xp, k.shape, k)
-    b, hp, wp, c = xp.shape
-    h, w, o = hp - 2, wp - 2, k.shape[-1]
-    if -(-b * h * w // _MIN_TILE_M) > _MAX_GRID_Y:
+def _launch_conv(name: str, x: torch.Tensor, wk: torch.Tensor, pad: int,
+                 dgrad: bool) -> torch.Tensor:
+    """The conv3x3.cu kernel on CUDA x (B, Hin, Win, C), zero-padded by
+    ``pad`` inside the kernel, and the kernel weight wk
+    (:func:`_kernel_weight`) in x's dtype -> (B, Hin+2pad-2, Win+2pad-2, O):
+    the forward with wk (3, 3, O, C); if ``dgrad``, with wk (3, 3, C, O),
+    its taps flipped and transposed."""
+    b, hin, win, c = x.shape
+    o = wk.shape[3] if dgrad else wk.shape[2]
+    _check_cuda(name, x, (3, 3, c, o), wk, pad)
+    want = (3, 3, c, o) if dgrad else (3, 3, o, c)
+    if pad not in (0, 2) or tuple(wk.shape) != want:
+        raise ValueError(f"{name}: pad {pad}, weight {tuple(wk.shape)}")
+    h, w = hin + 2 * pad - 2, win + 2 * pad - 2
+    if b * h * w > _MAX_PIXELS:
         raise ValueError(f"{name}: {b * h * w} output pixels exceed the "
-                         f"launch grid")
-    k = k.to(xp.dtype).contiguous()
-    if k.data_ptr() % 16:
-        raise ValueError(f"{name}: inputs must be 16-byte aligned")
-    y = torch.empty((b, h, w, o), dtype=xp.dtype, device=xp.device)
-    with torch.cuda.device(xp.device):
+                         f"kernel's int32 indexing")
+    if wk.dtype != x.dtype or not wk.is_contiguous() or wk.data_ptr() % 16:
+        raise ValueError(f"{name}: weight must be contiguous, {x.dtype} "
+                         f"and 16-byte aligned")
+    y = torch.empty((b, h, w, o), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _conv_lib().councilx_conv3x3_valid(
-            xp.data_ptr(), k.data_ptr(), y.data_ptr(), b, h, w, c, o,
-            _DTYPE_CODES[xp.dtype], stream)
+        err = _conv_lib().councilx_conv3x3(
+            x.data_ptr(), wk.data_ptr(), y.data_ptr(), b, hin, win, c, o,
+            pad, int(dgrad), _DTYPE_CODES[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
@@ -159,7 +190,8 @@ def _launch_conv(name: str, xp: torch.Tensor, k: torch.Tensor
 def _forward(xp: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     if xp.device.type == "cpu":
         return conv3x3_valid_reference(xp, k)
-    y = _launch_conv("conv3x3_valid", xp, k)
+    y = _launch_conv("conv3x3_valid", xp, _kernel_weight(k, xp.dtype), 0,
+                     False)
     conv3x3_valid.launches += 1
     return y
 
@@ -168,15 +200,17 @@ def conv3x3_dgrad(g: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """d(xp) of :func:`conv3x3_valid` for the cotangent g (B, H, W, O) and
     the weight k (3, 3, C, O): (B, H+2, W+2, C) in g's dtype.
 
-    On a CUDA tensor: the forward kernel on g zero-padded by 2 with the
-    flipped, in/out-swapped weight (K1 run as dgrad, as ``_bwd_rule`` runs
-    it); ``conv3x3_dgrad.launches`` counts those launches."""
+    On a CUDA tensor: the forward kernel on g with a zero pad of 2 that its
+    loads supply (no padded copy of g), reading the forward's kernel weight
+    with the taps flipped and transposed as the flipped, in/out-swapped
+    weight (no flipped copy) -- K1 run as dgrad, as ``_bwd_rule`` runs it;
+    ``conv3x3_dgrad.launches`` counts those launches."""
     if g.device.type == "cpu":
         return conv3x3_dgrad_reference(g, k)
     if g.dim() != 4:
         raise ValueError(f"conv3x3_dgrad: want 4-D g, got {tuple(g.shape)}")
-    dxp = _launch_conv("conv3x3_dgrad", _pad2(g.contiguous()),
-                       _flip_weight(k, g.dtype))
+    dxp = _launch_conv("conv3x3_dgrad", g.contiguous(),
+                       _kernel_weight(k, g.dtype), 2, True)
     conv3x3_dgrad.launches += 1
     return dxp
 

@@ -110,9 +110,10 @@ def _grads(loss: torch.Tensor, params: Sequence[torch.Tensor]
 
 class CouncilTrainer:
     """Builds the council's modules and optimizers and runs the train step
-    on ``device``."""
+    on ``device``: the card unless the caller asks for another device (the
+    CPU tests pass ``device="cpu"``)."""
 
-    def __init__(self, cfg: Config, device="cpu"):
+    def __init__(self, cfg: Config, device="cuda"):
         if cfg.remat_stages:
             raise NotImplementedError(
                 "remat_stages is not ported yet to councilx_torch; use remat")

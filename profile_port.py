@@ -1,0 +1,168 @@
+#!/usr/bin/env python3
+"""Where the time goes on councilx_torch's two main paths, on one GPU.
+
+    python3 profile_port.py [--out DIR]
+
+Imports nothing of JAX or ``councilx``; needs one CUDA card. The paths and
+configs are ``chip_smoke.py``'s, with random weights from seed 0:
+
+1. serving: member 0 of the flagship council-4 256px bf16 model at bucket
+   8, through ``Translator.translate_u8io_device`` (uint8 in and out on
+   the card), 3 warm calls, then 5 calls under ``torch.profiler``;
+2. training: ``CouncilTrainer.train_step`` at ``bench.py::headline_config``
+   (council-4, 256px, batch 8, bf16), 3 warm steps, then 3 profiled steps.
+
+For each path it prints the wall time per call (host clock around
+synchronized work), the host time to enqueue one call, the device kernel
+time per call (the sum of every kernel's duration in the trace) and the
+device's busy share (kernel time over wall time), then the kernel time per
+call by class of kernel and the heaviest kernels by name. ``--out DIR``
+also writes the summaries to DIR/profile.json.
+"""
+
+import argparse
+import json
+import os
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+import chip_smoke
+from councilx_torch.config import Config
+from councilx_torch.inference.translate import Translator
+from councilx_torch.train.trainer import CouncilTrainer
+
+# kernel classes, first match by substring of the kernel's name
+CLASSES = (
+    ("K1/K1' conv3x3 (conv3x3.cu)", ("conv3x3_bf16_kernel",
+                                     "conv3x3_f32_kernel")),
+    ("K2 wgrad (conv3x3_wgrad.cu)", ("wgrad_bf16_kernel",
+                                     "wgrad_f32_kernel",
+                                     "sum_splits_kernel")),
+    ("K5/K6 norm backward (Triton)", ("instance_norm_bwd_kernel",)),
+    ("K3/K4 norm forward (Triton)", ("instance_norm_kernel",)),
+    ("cuDNN / cuBLAS convs and matmuls", ("cudnn", "xmma", "gemm", "conv",
+                                          "cutlass", "sm90_", "nchwTo",
+                                          "nhwcTo", "wgrad_alg", "dgrad")),
+    ("gather and scatter (pad, index, index_put)", ("index", "scatter",
+                                                    "gather", "sort",
+                                                    "radix", "pad")),
+    ("reductions", ("reduce",)),
+    ("copies and casts", ("copy", "Memcpy", "Memset", "cat")),
+    ("elementwise", ("elementwise", "foreach", "vectorized")),
+)
+
+
+def classify(name: str) -> str:
+    for label, keys in CLASSES:
+        if any(k in name for k in keys):
+            return label
+    return "other"
+
+
+def kernel_table(prof, calls: int) -> dict:
+    """Device ms per call by kernel name, from the trace's CUDA events."""
+    per_name = defaultdict(float)
+    launches = defaultdict(int)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per_name[e.name] += e.time_range.elapsed_us() / 1e3 / calls
+            launches[e.name] += 1
+    return {"ms": dict(per_name),
+            "launches": {k: v / calls for k, v in launches.items()}}
+
+
+def profile(fn, warm: int, calls: int, label: str) -> dict:
+    """Wall, enqueue and kernel time per call of fn, and the breakdown."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    enqueue = []
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        e0 = time.perf_counter()
+        fn()
+        enqueue.append(time.perf_counter() - e0)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / calls
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    table = kernel_table(prof, calls)
+    kernel_ms = sum(table["ms"].values())
+    by_class = defaultdict(float)
+    for name, ms in table["ms"].items():
+        by_class[classify(name)] += ms
+    summary = {
+        "path": label, "calls": calls, "wall_ms": wall_ms,
+        "enqueue_ms": 1e3 * float(np.median(enqueue)),
+        "kernel_ms": kernel_ms, "busy_share": kernel_ms / wall_ms,
+        "launches": sum(table["launches"].values()),
+        "by_class_ms": dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
+        "top_kernels": [
+            {"name": n[:120], "ms": ms, "launches": table["launches"][n]}
+            for n, ms in sorted(table["ms"].items(),
+                                key=lambda kv: -kv[1])[:25]]}
+    print(f"[profile] {label}: wall {wall_ms:.6g} ms/call, enqueue "
+          f"{summary['enqueue_ms']:.6g} ms, kernels {kernel_ms:.6g} ms "
+          f"({summary['launches']:.6g} launches) per call, device busy "
+          f"{100 * summary['busy_share']:.4g}%", flush=True)
+    for cls, ms in summary["by_class_ms"].items():
+        print(f"[profile] {label}:   {ms:9.4f} ms  {100 * ms / kernel_ms:5.1f}%"
+              f"  {cls}", flush=True)
+    for k in summary["top_kernels"][:12]:
+        print(f"[profile] {label}:   {k['ms']:9.4f} ms  x{k['launches']:g}  "
+              f"{k['name']}", flush=True)
+    return summary
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default=None,
+                    help="directory for profile.json, the summaries")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_port: no CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+    card = chip_smoke.card()
+    print(f"[profile] {torch.cuda.get_device_name(0)} ({card}); torch "
+          f"{torch.__version__}", flush=True)
+    cfg = Config.from_dict(chip_smoke.FLAGSHIP)
+    tr = Translator(cfg, device="cuda")
+    gen = tr.init_members(1, seed=0)[0]
+    rng = np.random.default_rng(0)
+    b, hw = chip_smoke.BATCH, chip_smoke.HW
+    x8 = torch.from_numpy(rng.integers(0, 256, (b, hw, hw, 3),
+                                       dtype=np.uint8)).cuda()
+    z8 = torch.randn(b, cfg.gen.style_dim).cuda()
+    serve = profile(lambda: tr.translate_u8io_device(gen, x8, z=z8), 3, 5,
+                    "serve_bucket8")
+    del gen, tr
+
+    trainer = CouncilTrainer(Config.from_dict(chip_smoke.HEADLINE),
+                             device="cuda")
+    holder = {"state": trainer.init_state(seed=0)}
+    x_a, x_b = (torch.from_numpy(rng.uniform(-1, 1, (b, hw, hw, 3))
+                                 .astype(np.float32)).cuda()
+                for _ in range(2))
+
+    def step():
+        holder["state"], _ = trainer.train_step(holder["state"], x_a, x_b)
+
+    train = profile(step, 3, 3, "train_step")
+    if args.out:
+        with open(os.path.join(args.out, "profile.json"), "w") as f:
+            json.dump({"card": card, "paths": [serve, train]}, f, indent=1)
+    print(card)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,65 @@
+"""chip_smoke.py's bound arithmetic, and its refusal to run without a card.
+
+chip_smoke imports only torch, numpy and councilx_torch. The least time it
+prints beside each kernel's measured time is computed from shapes alone,
+so it is held here against values worked out by hand: bf16 at the main
+path's shapes, each input read once and each output written once, against
+989 TFLOP/s (tensor cores) and 3.35 TB/s.
+"""
+
+import pytest
+import torch
+
+import chip_smoke
+
+CONV = (8, 64, 64, 256, 256)        # xp (8, 66, 66, 256), k (3, 3, 256, 256)
+
+
+@pytest.mark.parametrize("name,shape,ms,by", [
+    # 2 * 32768 * 2304 * 256 = 38.65 GFLOP (35.8 MB) at 989 TFLOP/s
+    ("conv3x3", CONV, 0.03908, "operations"),
+    ("conv3x3_dgrad", CONV, 0.03908, "operations"),
+    ("conv3x3_wgrad", CONV, 0.03908, "operations"),
+    # x read and y written, 2 x 16.78 MB, + 16 KB of f32 mean and rstd
+    ("instance_norm", (8, 64, 64, 256), 0.01002, "bytes"),
+    ("instance_norm", (8, 256, 256, 64), 0.04007, "bytes"),
+    ("adain", (8, 64, 64, 256), 0.01003, "bytes"),
+    # dy and x read, dx written: 3 x 16.78 MB at (8, 64, 64, 256)
+    ("instance_norm_bwd", (8, 64, 64, 256), 0.01503, "bytes"),
+    ("instance_norm_bwd", (8, 128, 128, 128), 0.03005, "bytes"),
+    ("instance_norm_bwd", (8, 256, 256, 64), 0.06010, "bytes"),
+    ("adain_bwd", (8, 64, 64, 256), 0.01504, "bytes"),
+])
+def test_bound_matches_the_hand_arithmetic(name, shape, ms, by):
+    got, got_by = chip_smoke.bound_ms(name, shape)
+    # the hand values carry 4 significant digits
+    assert got == pytest.approx(ms, rel=1e-3)
+    assert got_by == by
+
+
+def test_conv_work_counts_each_tensor_once():
+    ops, nbytes, kind = chip_smoke.kernel_work("conv3x3", CONV)
+    assert ops == 2 * (8 * 64 * 64) * (9 * 256) * 256
+    assert round(ops / 1e9, 2) == 38.65
+    # xp 17.84 MB + y 16.78 MB + k 1.18 MB
+    assert nbytes == 2 * (8 * 66 * 66 * 256 + 8 * 64 * 64 * 256
+                          + 9 * 256 * 256)
+    assert round(nbytes / 1e6, 1) == 35.8
+    assert kind == "bf16"
+    # f32 (parity mode): twice the bytes, against the f32 FMA rate
+    ops32, nbytes32, kind32 = chip_smoke.kernel_work("conv3x3", CONV, 4)
+    assert (ops32, nbytes32, kind32) == (ops, 2 * nbytes, "f32")
+
+
+def test_norm_bound_is_set_by_the_bytes_not_the_arithmetic():
+    for name in chip_smoke.NORM_WORK:
+        ops, nbytes, kind = chip_smoke.kernel_work(name, (8, 64, 64, 256))
+        assert kind == "f32"
+        assert ops / chip_smoke.PEAK_OPS["f32"] < nbytes / chip_smoke.PEAK_BYTES
+
+
+def test_chip_smoke_refuses_to_run_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py would run")
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        chip_smoke.main()

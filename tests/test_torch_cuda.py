@@ -8,6 +8,7 @@ where tests/conftest.py (which imports JAX) must be left out:
 """
 
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -18,7 +19,8 @@ from councilx_torch.inference.translate import Translator
 from councilx_torch.ops.conv3x3 import (conv3x3_dgrad,
                                         conv3x3_dgrad_reference,
                                         conv3x3_valid, conv3x3_valid_reference,
-                                        conv3x3_wgrad, conv3x3_wgrad_reference)
+                                        conv3x3_wgrad, conv3x3_wgrad_reference,
+                                        hwio_weight)
 from councilx_torch.ops.instance_norm import (
     instance_norm, instance_norm_backward, instance_norm_backward_reference,
     instance_norm_forward_reference, instance_norm_reference)
@@ -38,9 +40,15 @@ def cuda():
     return torch.device("cuda")
 
 
+# the resblock conv at serving width, the reduced config's 128 channels at
+# 16x16, and ragged shapes: M not a multiple of the 128-pixel tile, W other
+# than 64, C and O multiples of 8 but not of 64
+CONV_SHAPES = [(2, 64, 64, 256, 256), (2, 16, 16, 128, 128),
+               (3, 17, 45, 72, 136), (1, 5, 7, 16, 24), (3, 9, 3, 8, 136)]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,h,w,c,o", [(2, 64, 64, 256, 256),
-                                       (1, 5, 7, 16, 24), (3, 9, 3, 8, 136)])
+@pytest.mark.parametrize("b,h,w,c,o", CONV_SHAPES)
 def test_conv3x3_kernel_matches_plain(cuda, dtype, b, h, w, c, o):
     g = torch.Generator(device=cuda).manual_seed(0)
     xp = torch.randn(b, h + 2, w + 2, c, device=cuda, generator=g).to(dtype)
@@ -94,11 +102,11 @@ def test_translate_on_gpu_matches_cpu_and_runs_the_kernels(cuda):
     # smoke_tiny: f32, dim 8 (content 32 channels), n_res 2, 32px
     cfg = load_config(os.path.join(REPO, "configs", "smoke_tiny.yaml"))
     sds = [{k: v.cpu() for k, v in g.state_dict().items()}
-           for g in Translator(cfg).init_members(2, seed=0)]
+           for g in Translator(cfg, device="cpu").init_members(2, seed=0)]
     r = np.random.default_rng(0)
     x = r.uniform(-1, 1, (3, 32, 32, 3)).astype(np.float32)
     z = r.standard_normal((3, 3)).astype(np.float32)
-    cpu = Translator(cfg)
+    cpu = Translator(cfg, device="cpu")
     want = cpu.translate(cpu.load_members(sds), x, z=z, member=1)[0]
     gpu = Translator(cfg, device=cuda)
     gens = gpu.load_members(sds)
@@ -164,15 +172,16 @@ def test_autograd_through_the_kernels_matches_plain(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,h,w,c,o", [(8, 64, 64, 256, 256),
-                                       (1, 5, 7, 16, 24), (3, 9, 3, 8, 136)])
+@pytest.mark.parametrize("b,h,w,c,o", [(8, 64, 64, 256, 256)]
+                         + CONV_SHAPES[1:])
 def test_conv3x3_backward_kernels_match_plain(cuda, dtype, b, h, w, c, o):
     g = torch.Generator(device=cuda).manual_seed(3)
     xp = torch.randn(b, h + 2, w + 2, c, device=cuda, generator=g).to(dtype)
     k = (torch.randn(3, 3, c, o, device=cuda, generator=g)
          / (9 * c) ** 0.5).to(dtype)
     gy = torch.randn(b, h, w, o, device=cuda, generator=g).to(dtype)
-    # dgrad: the forward kernel on the padded cotangent, one rounding
+    # dgrad: the forward kernel on the cotangent, padded by its loads; one
+    # rounding
     _close(conv3x3_dgrad(gy, k), conv3x3_dgrad_reference(gy.float(),
                                                          k.float()),
            2 ** -7 if dtype == torch.bfloat16 else 1e-5)
@@ -182,6 +191,58 @@ def test_conv3x3_backward_kernels_match_plain(cuda, dtype, b, h, w, c, o):
     _close(conv3x3_wgrad(xp, gy, dtype), want,
            2 ** -7 if dtype == torch.bfloat16 else 1e-4)
     _close(conv3x3_wgrad(xp, gy), want, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv3x3_dgrad_makes_no_padded_copy(cuda, dtype):
+    """The dgrad's zero pad comes from the kernel's loads and its weight is
+    the forward's, read transposed: on the blocks' k (``hwio_weight``) no
+    pad op runs on the card, and the conv kernel is the only kernel."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    gy = torch.randn(2, 16, 16, 128, device=cuda, generator=g).to(dtype)
+    k = hwio_weight(torch.randn(128, 128, 3, 3, device=cuda, generator=g)
+                    / 34, dtype)
+    _close(conv3x3_dgrad(gy, k), conv3x3_dgrad_reference(gy.float(),
+                                                         k.float()),
+           2 ** -7 if dtype == torch.bfloat16 else 1e-5)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        dxp = conv3x3_dgrad(gy, k)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    assert not [n for n in names if "pad" in n.lower()], names
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "conv3x3_" in kernels[0], kernels
+    assert dxp.shape == (2, 18, 18, 128)
+
+
+def test_conv3x3_dgrad_launches_from_a_fresh_thread(cuda):
+    """On the blocks' k the dgrad makes no copy before its launch, so in a
+    new thread (as autograd's backward worker is) its launch is the
+    thread's first CUDA call; the tensor maps must still encode."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    gy = torch.randn(2, 8, 7, 24, device=cuda, generator=g).bfloat16()
+    k = hwio_weight(torch.randn(24, 16, 3, 3, device=cuda, generator=g) / 12,
+                    torch.bfloat16)
+    out = {}
+
+    def run():
+        try:
+            out["dxp"] = conv3x3_dgrad(gy, k)
+            torch.cuda.synchronize()
+        except Exception as e:      # re-raised in the test's thread
+            out["error"] = e
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive()
+    if "error" in out:
+        raise out["error"]
+    _close(out["dxp"], conv3x3_dgrad_reference(gy.float(), k.float()), 2 ** -7)
 
 
 def test_conv3x3_wgrad_is_deterministic(cuda):
@@ -230,7 +291,7 @@ def test_train_step_on_gpu_matches_cpu(cuda):
            "council": {"council_size": 2, "council_w": 0.2},
            "data": {"crop_image_height": 32, "crop_image_width": 32}}
     cfg = Config.from_dict(raw)
-    cpu = CouncilTrainer(cfg)
+    cpu = CouncilTrainer(cfg, device="cpu")
     cpu_state = cpu.init_state(seed=0)
     gpu = CouncilTrainer(cfg, device=cuda)
     gpu_state = gpu.load_state(cpu_state.state_dicts())

@@ -76,7 +76,7 @@ def pair(request):
             "decoded": np.asarray(run(JAdaINGen.decode, content,
                                       jnp.asarray(z))),
         }
-    tgen = Translator(cfg).load_members(params_to_state_dicts(params, cfg))[0]
+    tgen = Translator(cfg, device="cpu").load_members(params_to_state_dicts(params, cfg))[0]
     return want, tgen, x, z
 
 

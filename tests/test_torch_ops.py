@@ -8,6 +8,7 @@ each with its plain version there.
 """
 
 import functools
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -112,3 +113,45 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing():
     assert (conv3x3_valid.launches, instance_norm.launches) == (conv0, norm0)
     with pytest.raises(ValueError, match="together"):
         instance_norm(x, g, None)
+
+
+@pytest.mark.parametrize("header", ["common.cuh", "tiles.h"])
+def test_kernel_build_is_named_by_its_headers_too(tmp_path, monkeypatch,
+                                                  header):
+    """An edited header in csrc/ gives the library a new name, so a stale
+    build is never loaded for it; the flags and the source do too."""
+    from councilx_torch.ops import _build
+
+    monkeypatch.setattr(_build, "CSRC_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / header).write_text("constexpr int TILE = 128;\n")
+    first = _build._library_path("k")
+    assert first == _build._library_path("k")
+    (tmp_path / header).write_text("constexpr int TILE = 64;\n")
+    second = _build._library_path("k")
+    assert second != first
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n// edited\n')
+    assert _build._library_path("k") not in (first, second)
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
+    assert _build._library_path("k") not in (first, second)
+    assert os.path.dirname(first) == str(tmp_path / "build")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hwio_weight_is_the_kernel_weight_without_a_copy(dtype):
+    """The blocks' k: the OIHW weight as HWIO in the compute dtype, laid out
+    so that the conv kernels' weight is k's own storage (the forward and
+    the dgrad copy nothing), and the gradient reaches the OIHW weight."""
+    from councilx_torch.ops.conv3x3 import _kernel_weight, hwio_weight
+
+    r = np.random.default_rng(4)
+    w = torch.from_numpy(r.standard_normal((16, 8, 3, 3)).astype(np.float32))
+    w.requires_grad_()
+    k = hwio_weight(w, dtype)
+    assert k.dtype == dtype and k.shape == (3, 3, 8, 16)
+    assert torch.equal(k, w.detach().permute(2, 3, 1, 0).to(dtype))
+    wk = _kernel_weight(k, dtype)
+    assert wk.shape == (3, 3, 16, 8) and wk.data_ptr() == k.data_ptr()
+    k.float().sum().backward()
+    assert torch.equal(w.grad, torch.ones_like(w))

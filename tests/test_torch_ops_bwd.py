@@ -20,6 +20,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from councilx.ops.pallas_conv import conv3x3_valid as jax_conv3x3_valid
 from councilx.ops.pallas_norm import instance_norm_pallas
+from councilx_torch.ops import conv3x3 as conv_ops
 from councilx_torch.ops.conv3x3 import (Conv3x3Valid, conv3x3_dgrad_reference,
                                         conv3x3_valid, conv3x3_wgrad,
                                         conv3x3_wgrad_reference)
@@ -74,6 +75,55 @@ def test_conv3x3_backward_references_match_pallas_vjp(b):
     dxp, dk = torch.autograd.grad(conv3x3_valid(xt, kt), (xt, kt), _t(g))
     np.testing.assert_allclose(dxp.numpy(), got_dxp, atol=0, rtol=0)
     np.testing.assert_allclose(dk.numpy(), got_dk, atol=0, rtol=0)
+
+
+def _conv_kernel_contract(x, wk, pad, dgrad):
+    """What csrc/conv3x3.cu computes, in plain PyTorch: x (B, Hin, Win, C),
+    zero outside, with the forward conv's kernel weight wk -> (B, Hin + 2
+    pad - 2, Win + 2 pad - 2, O). The forward reads wk (3, 3, O, C) as
+    wk[t][o][c]; the dgrad reads wk (3, 3, C, O) with its taps flipped, as
+    wk[8-t][c][o]."""
+    xz = torch.nn.functional.pad(x, (0, 0, pad, pad, pad, pad))
+    h, w = xz.shape[1] - 2, xz.shape[2] - 2
+    taps = wk.flip((0, 1)) if dgrad else wk.transpose(2, 3)
+    return sum(xz[:, dy:dy + h, dx:dx + w] @ taps[dy, dx]
+               for dy in range(3) for dx in range(3))
+
+
+@pytest.mark.parametrize("b,h,w,c,o", [(2, 8, 8, 128, 128),
+                                       (2, 5, 7, 16, 24), (3, 4, 3, 72, 136)])
+def test_conv_kernel_layouts_match_the_references(b, h, w, c, o):
+    """The kernel's weight layout and in-kernel zero pad: the forward (pad
+    0 on xp) and the dgrad (pad 2 on the unpadded g), both with the kernel
+    weight ``_kernel_weight`` makes, give the plain versions, and at 128
+    channels the JAX package's conv3x3_valid and its VJP (Pallas,
+    interpret mode)."""
+    r = np.random.default_rng(b + c)
+    xp = r.standard_normal((b, h + 2, w + 2, c)).astype(np.float32)
+    k = (r.standard_normal((3, 3, c, o)) / (9 * c) ** 0.5).astype(np.float32)
+    g = r.standard_normal((b, h, w, o)).astype(np.float32)
+    wk = conv_ops._kernel_weight(_t(k), torch.float32)
+    y = _conv_kernel_contract(_t(xp), wk, 0, False)
+    dxp = _conv_kernel_contract(_t(g), wk, 2, True)
+    assert y.shape == (b, h, w, o) and dxp.shape == xp.shape
+    # f32 sums of 9*C (forward) or 9*O (dgrad) products in another order
+    np.testing.assert_allclose(
+        y.numpy(), conv_ops.conv3x3_valid_reference(_t(xp), _t(k)).numpy(),
+        atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(
+        dxp.numpy(), conv3x3_dgrad_reference(_t(g), _t(k)).numpy(),
+        atol=1e-5, rtol=1e-5)
+    if c % 128 == 0 and o % 128 == 0:
+        @_interp
+        def fwd_vjp(xp, k, g):
+            y, f = jax.vjp(jax_conv3x3_valid, xp, k)
+            return y, f(g)[0]
+
+        want_y, want_dxp = (np.asarray(a) for a in fwd_vjp(
+            jnp.asarray(xp), jnp.asarray(k), jnp.asarray(g)))
+        np.testing.assert_allclose(y.numpy(), want_y, atol=2e-4, rtol=1e-4)
+        np.testing.assert_allclose(dxp.numpy(), want_dxp, atol=2e-4,
+                                   rtol=1e-4)
 
 
 @pytest.mark.parametrize("affine", [False, True])

@@ -42,7 +42,8 @@ def test_two_steps_match_jax(case):
 
 def _port_steps(steps=2, **over):
     """``steps`` port-only steps from one seeded init -> (metrics, state)."""
-    trainer = CouncilTrainer(Config.from_dict(raw_config(**over)))
+    trainer = CouncilTrainer(Config.from_dict(raw_config(**over)),
+                             device="cpu")
     state = trainer.init_state(seed=3)
     x_a, x_b = batch(1)
     out = []
@@ -74,11 +75,21 @@ def test_remat_and_member_chunks_match_the_plain_step(over, exact):
 def test_not_ported_options_raise():
     for over in (dict(remat_stages=True), dict(vgg_w=1.0)):
         with pytest.raises(NotImplementedError, match="not ported yet"):
-            CouncilTrainer(Config.from_dict(raw_config(**over)))
+            CouncilTrainer(Config.from_dict(raw_config(**over)),
+                           device="cpu")
+
+
+def test_trainer_defaults_to_the_card():
+    trainer = CouncilTrainer(Config.from_dict(raw_config()))
+    assert trainer.device.type == "cuda"
+    if not torch.cuda.is_available():
+        # no card here: the state is not made on the CPU instead
+        with pytest.raises((AssertionError, RuntimeError)):
+            trainer.init_state(seed=0)
 
 
 def test_sample_and_drawn_z_shapes():
-    trainer = CouncilTrainer(Config.from_dict(raw_config()))
+    trainer = CouncilTrainer(Config.from_dict(raw_config()), device="cpu")
     state = trainer.init_state(seed=0)
     x_a, _ = batch()
     x_t, mask = trainer.sample(state, x_a)

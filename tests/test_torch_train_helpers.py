@@ -58,7 +58,7 @@ class Pair:
         raw = raw_config(**over)
         self.jcfg, self.cfg = JConfig.from_dict(raw), Config.from_dict(raw)
         self.jt = JTrainer(self.jcfg)
-        self.pt = CouncilTrainer(self.cfg)
+        self.pt = CouncilTrainer(self.cfg, device="cpu")
         state = jax.jit(self.jt.init_state)(jax.random.PRNGKey(0))
         self.params = jax.device_get(state.params)
         self.rng = np.asarray(jax.device_get(state.rng))

@@ -45,7 +45,7 @@ def council():
     dummy = jnp.zeros((1, HW, HW, 3), jnp.float32)
     stacked = jax.device_get(jax.jit(jax.vmap(jtr.gen.init, in_axes=(0, None)))(
         jax.random.split(jax.random.PRNGKey(0), N), dummy)["params"])
-    tr = Translator(cfg)
+    tr = Translator(cfg, device="cpu")
     gens = tr.load_members(params_to_state_dicts(stacked, cfg))
     r = np.random.default_rng(0)
     x_u8 = r.integers(0, 256, (B, HW, HW, 3), dtype=np.uint8)
@@ -173,6 +173,35 @@ def test_build_engine_rejects_flags_not_ported(council, flag):
                            4, 5.0, device="cpu", **flag)
 
 
+def test_translator_defaults_to_the_card():
+    tr = Translator(load_config(CONFIG))
+    assert tr.device.type == "cuda"
+    if not torch.cuda.is_available():
+        # no card here: making the members raises instead of using the CPU
+        with pytest.raises((AssertionError, RuntimeError)):
+            tr.init_members(1, seed=0)
+
+
+def test_build_engine_without_a_device_does_not_serve_on_the_cpu(
+        council, tmp_path):
+    _, stacked, _, _, _, _, _ = council
+    path = str(tmp_path / "gen.npz")
+    save_params_npz(path, stacked)
+    cfg = load_config(CONFIG)
+    if torch.cuda.is_available():
+        engine = serve.build_engine(cfg, path, "0", "a2b", 4, 5.0,
+                                    warmup=False)
+        try:
+            assert engine.translator.device.type == "cuda"
+        finally:
+            engine.stop()
+        return
+    with pytest.raises((AssertionError, RuntimeError)):
+        serve.build_engine(cfg, path, "0", "a2b", 4, 5.0, warmup=False)
+    with pytest.raises((AssertionError, RuntimeError)):
+        serve.main(["--config", CONFIG, "--checkpoint", path, "--no_warmup"])
+
+
 def test_serve_cli_rejects_quant():
     with pytest.raises(SystemExit, match="not ported yet"):
         serve.main(["--config", CONFIG, "--checkpoint", "x.pt",
@@ -237,7 +266,7 @@ def test_sigmoid_mask_translate_matches_jax():
                                                   jnp.asarray(x))["params"])
     jimg, jmask = jtr.translate(params, jnp.asarray(x), z=jnp.asarray(z))
     cfg = Config.from_dict(raw)
-    tr = Translator(cfg)
+    tr = Translator(cfg, device="cpu")
     gen = tr.load_members(params_to_state_dicts(params, cfg))[0]
     img, mask = tr.translate(gen, x, z=z)
     np.testing.assert_allclose(img.numpy(), np.asarray(jimg), atol=1e-4)
@@ -280,7 +309,7 @@ def test_serve_preprocessing_matches_jax(size):
 
 def test_init_members_is_seeded():
     cfg = load_config(CONFIG)
-    tr = Translator(cfg)
+    tr = Translator(cfg, device="cpu")
     a, b = tr.init_members(2, seed=11), tr.init_members(2, seed=11)
     c = tr.init_members(1, seed=12)
     for k, v in a[1].state_dict().items():
