@@ -8,17 +8,18 @@ Runs from the root of a checkout; imports nothing of JAX or ``councilx``.
 Phases, in order; any failure raises and exits non-zero:
 
 1. device: a CUDA card is required; print its name and power limit;
-2. build: compile the CUDA kernels (conv3x3 forward/dgrad, conv3x3 wgrad;
-   one ``nvcc`` per source, in parallel) and import the Triton norm kernels
-   from the checkout's sources;
+2. build: compile the CUDA kernels (``CUDA_SOURCES``: conv3x3 forward and
+   dgrad, conv3x3 wgrad, the IN/AdaIN backward; one ``nvcc`` per source,
+   in parallel) and import the Triton norm forward from the checkout's
+   sources;
 3. each kernel against its plain PyTorch version on the card, at the
    serving and training paths' shapes, in bf16 and f32 (TF32 off for the
    plain versions): max abs error against a stated tolerance; median
    device times (:func:`device_ms`) of the kernel, its plain version and
    one PyTorch library call that computes the same function (a yardstick
    the port never calls), and the least time the card could take
-   (:func:`bound_ms`); the conv's host time per call; the wgrad kernel
-   twice, bit-equal;
+   (:func:`bound_ms`); the conv's host time per call; the wgrad and norm
+   backward kernels twice each, bit-equal;
 4. the serving slice at full width (council-4, 256px, dim 64, n_res 4,
    bf16, random weights from a seed): 4 members saved as a reference
    ``.pt``, loaded through ``councilx_torch.cli.serve.build_engine``,
@@ -118,6 +119,11 @@ REDUCED = {
     "new_size": 64, "crop_image_height": 64, "crop_image_width": 64,
 }
 
+
+# every CUDA source of councilx_torch/csrc, built in phase 2
+CUDA_SOURCES = ("conv3x3", "conv3x3_wgrad", "instance_norm_bwd")
+# kernels whose two launches on the same inputs must be bit-equal
+DETERMINISTIC = ("conv3x3_wgrad", "instance_norm_bwd", "adain_bwd")
 
 # the card's peak rates (NVIDIA H100 SXM data sheet, dense, at the full
 # 700 W): bf16 on the tensor cores, f32 on the FMA units, device memory
@@ -246,11 +252,12 @@ def host_us(fn, n: int = 200) -> float:
 def conv_host_times(xp: torch.Tensor, k: torch.Tensor, gy: torch.Tensor,
                     card_str: str):
     """Host us per call of the bf16 conv: through its wrappers (forward,
-    dgrad), and of the kernel library's entry point alone (the forward's
-    three tensor-map encodes and its launch); the rest of a wrapper call is
-    PyTorch's."""
+    dgrad, wgrad), and of the kernel library's entry point alone (the
+    forward's three tensor-map encodes and its launch); the rest of a
+    wrapper call is PyTorch's."""
     fwd = host_us(lambda: conv3x3_valid(xp, k))
     dgrad = host_us(lambda: conv3x3_dgrad(gy, k))
+    wgrad = host_us(lambda: conv3x3_wgrad(xp, gy, xp.dtype))
     b, hp, wp, c = xp.shape
     wk = conv_ops._kernel_weight(k, xp.dtype)
     y = torch.empty(b, hp - 2, wp - 2, wk.shape[2], dtype=xp.dtype,
@@ -260,9 +267,9 @@ def conv_host_times(xp: torch.Tensor, k: torch.Tensor, gy: torch.Tensor,
     lib = host_us(lambda: entry(xp.data_ptr(), wk.data_ptr(), y.data_ptr(),
                                 b, hp, wp, c, wk.shape[2], 0, 0, 1, stream))
     log(f"[kernels] conv3x3 bf16 host time per call: forward wrapper "
-        f"{fwd:.6g} us, dgrad wrapper {dgrad:.6g} us; the library's entry "
-        f"point alone (three encodes and the launch) {lib:.6g} us "
-        f"[{card_str}]")
+        f"{fwd:.6g} us, dgrad wrapper {dgrad:.6g} us, wgrad wrapper "
+        f"{wgrad:.6g} us; the library's entry point alone (three encodes "
+        f"and the launch) {lib:.6g} us [{card_str}]")
 
 
 def phase_kernels(g: torch.Generator, card_str: str) -> dict:
@@ -376,6 +383,12 @@ def phase_kernels(g: torch.Generator, card_str: str) -> dict:
             affine = shape == norm_shapes[0]
             for gmm in ((None, gm) if affine else (None,)):
                 _, mean, rstd = instance_norm_forward_reference(x, gmm, gmm)
+                if dt == torch.bfloat16 and gmm is not None:
+                    us = host_us(lambda: instance_norm_backward(
+                        dy, x, mean, rstd, gmm))
+                    log(f"[kernels] adain_bwd bf16 {shape} host time per "
+                        f"call through its wrapper: {us:.6g} us "
+                        f"[{card_str}]")
                 # the library call's graph, built once; its backward timed
                 leaves = [x.detach().clone().requires_grad_()]
                 if gmm is None:
@@ -424,12 +437,15 @@ def phase_kernels(g: torch.Generator, card_str: str) -> dict:
         if not all(e <= t for e, t in zip(errs, tols)):
             raise AssertionError(f"{name} {dname} {shape}: max_abs_err "
                                  f"{errs} > tol {tols}")
-        if name == "conv3x3_wgrad":
+        if name in DETERMINISTIC:
             again = kern()
-            if not torch.equal(got, again):
-                raise AssertionError(f"conv3x3_wgrad {dname}: two launches "
+            if not all(torch.equal(a, b) for a, b in zip(
+                    got if isinstance(got, tuple) else (got,),
+                    again if isinstance(again, tuple) else (again,))
+                       if b is not None):
+                raise AssertionError(f"{name} {dname} {shape}: two launches "
                                      f"on the same inputs differ")
-            log(f"[kernels] conv3x3_wgrad {dname}: two launches bit-equal")
+            log(f"[kernels] {name} {dname} {shape}: two launches bit-equal")
         results[(name, dname, shape)] = {
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bms, "bound_by": bound_by,
@@ -761,7 +777,7 @@ def main():
         f"{torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    _build.build_cuda_libraries(["conv3x3", "conv3x3_wgrad"])
+    _build.build_cuda_libraries(CUDA_SOURCES)
     _build.load_triton_module("instance_norm_triton")
     log(f"[build] {time.perf_counter() - t0:.6g} s "
         f"{json.dumps(_build.build_seconds)}")
@@ -783,6 +799,7 @@ def main():
     conv_shape = (BATCH, 66, 66, 256)
     main_shape = (BATCH, 64, 64, 256)
     norm_src = "councilx_torch/csrc/instance_norm_triton.py"
+    norm_bwd_src = "councilx_torch/csrc/instance_norm_bwd.cu"
     entries = [
         ("conv3x3", "cuda", "councilx_torch/csrc/conv3x3.cu",
          "councilx/ops/pallas_conv.py:82",
@@ -801,11 +818,12 @@ def main():
          kres[("instance_norm", "bf16", main_shape)]),
         ("adain", "triton", norm_src, "councilx/ops/pallas_norm.py:67",
          adain_l, kres[("adain", "bf16", main_shape)]),
-        ("instance_norm_bwd", "triton", norm_src,
+        ("instance_norm_bwd", "cuda", norm_bwd_src,
          "councilx/ops/pallas_norm.py:121", bwd_l - adain_bwd_l,
          kres[("instance_norm_bwd", "bf16", main_shape)]),
-        ("adain_bwd", "triton", norm_src, "councilx/ops/pallas_norm.py:132",
-         adain_bwd_l, kres[("adain_bwd", "bf16", main_shape)]),
+        ("adain_bwd", "cuda", norm_bwd_src,
+         "councilx/ops/pallas_norm.py:132", adain_bwd_l,
+         kres[("adain_bwd", "bf16", main_shape)]),
     ]
     for e in entries:
         if e[4] < 1:

@@ -1,0 +1,366 @@
+// Hopper building blocks shared by the TMA + wgmma kernels of this
+// directory (conv3x3.cu: the conv and its dgrad; conv3x3_wgrad.cu: its
+// weight gradient): shared-memory addresses, mbarriers, TMA loads and
+// stores, the wgmma descriptor and instruction, the stmatrix epilogue of a
+// bf16 tile, and libcuda's tensor-map encoders looked up through the
+// runtime (so no library links to libcuda).
+//
+// Each source that includes this file is built into a shared library of
+// its own (ops/_build.py hashes every *.cuh into each library's name).
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace hopper {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// Make the initialised barriers visible to the async (TMA) proxy.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Spin until the phase of the given parity has completed. A barrier that
+// never completes traps (a launch error) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t spin = 0; !done; ++spin) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (spin > (1u << 26)) __trap();
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// One im2col box of a 4-D NHWC map: pixels from the window corner (w, h, n)
+// onwards, channels from c, the tap entering as the offset (off_w, off_h).
+__device__ __forceinline__ void tma_load_im2col(void* dst,
+                                                const CUtensorMap* map,
+                                                uint64_t* bar, int c, int w,
+                                                int h, int n, uint16_t off_w,
+                                                uint16_t off_h) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c), "r"(w), "r"(h), "r"(n), "h"(off_w),
+         "h"(off_h)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// TMA stores clip the box at the tensor's edges.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0),
+         "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0),
+         "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Wait until the issued TMA stores have read their shared memory.
+__device__ __forceinline__ void tma_store_drain() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// wgmma shared-memory descriptor of a tile with the 128-byte swizzle: rows
+// of 128 bytes, 8-row groups 1024 bytes apart (SBO). K-major (the forward's
+// A and B): LBO is unused, and advancing K by 16 bf16 adds 32 bytes to the
+// start. MN-major (the dgrad's B; the wgrad's A and B): the rows run along
+// K, LBO is the distance between the 64-wide M or N blocks, and advancing K
+// by 16 adds 16 rows, 2048 bytes.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr,
+                                               uint32_t lbo = 16) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+// Tell the compiler the accumulators may change under it (wgmma writes
+// them asynchronously), so it neither reorders nor caches them across the
+// fence/commit/wait calls.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// d (64 x 256, f32) += A (64 x 16) * B (16 x 256), both from shared memory:
+// K-major, or MN-major where TRANS_A / TRANS_B is set.
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, p, 1, 1, %131, %132;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS_A), "n"(TRANS_B));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, uint32_t r0,
+                                            uint32_t r1, uint32_t r2,
+                                            uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.x4.m8n8.shared.b16 [%0], {%1, %2, %3, %4};\n"
+      :: "r"(addr), "r"(r0), "r"(r1), "r"(r2), "r"(r3) : "memory");
+}
+
+// One warpgroup's 64 x 256 f32 accumulators (the m64n256 fragment), cast
+// once to bf16 and written by stmatrix to out: four 64 x 64 slabs of 8 KB
+// with the 128-byte swizzle, each the shared-memory box of a TMA store.
+// warp is the warp's index in its warpgroup.
+__device__ __forceinline__ void stage_tile_bf16(const float (&acc)[128],
+                                                uint32_t out, int warp,
+                                                int lane) {
+  const int q = lane / 8;
+  const int row = warp * 16 + (q & 1) * 8 + lane % 8;
+#pragma unroll
+  for (int jp = 0; jp < 16; ++jp) {
+    // accumulator chunk j (8 columns): acc[4j..4j+1] at row lane/4,
+    // acc[4j+2..4j+3] at row lane/4 + 8, columns 8j + 2(lane%4) + {0, 1}
+    const uint32_t r0 = pack_bf16(acc[8 * jp + 0], acc[8 * jp + 1]);
+    const uint32_t r1 = pack_bf16(acc[8 * jp + 2], acc[8 * jp + 3]);
+    const uint32_t r2 = pack_bf16(acc[8 * jp + 4], acc[8 * jp + 5]);
+    const uint32_t r3 = pack_bf16(acc[8 * jp + 6], acc[8 * jp + 7]);
+    const int chunk = 2 * jp + (q >> 1);          // 8-column chunk
+    const int slab = chunk / 8;
+    const uint32_t addr = out + slab * 8192 + row * 128 +
+                          (((chunk % 8) ^ (row % 8)) * 16);
+    stmatrix_x4(addr, r0, r1, r2, r3);
+  }
+}
+
+// libcuda's tensor-map encoders, looked up once through the runtime.
+typedef CUresult (*EncodeIm2col)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const int*, const int*, cuuint32_t, cuuint32_t,
+    const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+    CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+typedef CUresult (*EncodeTiled)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+struct Encoders {
+  EncodeIm2col im2col = nullptr;
+  EncodeTiled tiled = nullptr;
+};
+
+inline void* libcuda_entry(const char* name) {
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+  if (cudaGetDriverEntryPointByVersion(name, &fn, 12000, cudaEnableDefault,
+                                       &q) != cudaSuccess ||
+      q != cudaDriverEntryPointSuccess)
+    return nullptr;
+#else
+  if (cudaGetDriverEntryPoint(name, &fn, cudaEnableDefault, &q) !=
+          cudaSuccess ||
+      q != cudaDriverEntryPointSuccess)
+    return nullptr;
+#endif
+  return fn;
+}
+
+inline const Encoders& encoders() {
+  static const Encoders e = [] {
+    Encoders r;
+    r.im2col = reinterpret_cast<EncodeIm2col>(
+        libcuda_entry("cuTensorMapEncodeIm2col"));
+    r.tiled = reinterpret_cast<EncodeTiled>(
+        libcuda_entry("cuTensorMapEncodeTiled"));
+    return r;
+  }();
+  return e;
+}
+
+// The im2col map of a bf16 NHWC tensor x (B, Hin, Win, C) whose window
+// corners run over [-pad, dim - 3 + pad] in W and H: boxes of `pixels`
+// pixels x 64 channels (one 128-byte row each), 128-byte swizzle, zero
+// fill outside x. 0 or a CUDA error code.
+inline int encode_im2col_bf16(CUtensorMap* map, const void* x, int B, int Hin,
+                              int Win, int C, int pad, int pixels) {
+  const Encoders& enc = encoders();
+  if (enc.im2col == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t c2 = static_cast<cuuint64_t>(C) * 2;
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  const cuuint64_t dim[4] = {static_cast<cuuint64_t>(C),
+                             static_cast<cuuint64_t>(Win),
+                             static_cast<cuuint64_t>(Hin),
+                             static_cast<cuuint64_t>(B)};
+  const cuuint64_t stride[3] = {c2, c2 * Win, c2 * Win * Hin};
+  const int lower[2] = {-pad, -pad};
+  const int upper[2] = {pad - 2, pad - 2};
+  if (enc.im2col(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                 const_cast<void*>(x), dim, stride, lower, upper, 64,
+                 static_cast<cuuint32_t>(pixels), ones,
+                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
+}
+
+// A tiled map of a bf16 tensor of `rank` dims (innermost first, with the
+// byte strides of the outer ones) in boxes of box[] elements, 128-byte
+// swizzle, zero fill outside it. 0 or a CUDA error code.
+inline int encode_tiled_bf16(CUtensorMap* map, const void* base, int rank,
+                             const cuuint64_t* dim, const cuuint64_t* stride,
+                             const cuuint32_t* box,
+                             CUtensorMapL2promotion promotion) {
+  const Encoders& enc = encoders();
+  if (enc.tiled == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  if (enc.tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                static_cast<cuuint32_t>(rank), const_cast<void*>(base), dim,
+                stride, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, promotion,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
+}
+
+}  // namespace hopper

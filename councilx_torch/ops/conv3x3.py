@@ -9,7 +9,7 @@ device:
 * backward (``_bwd_rule``): d(xp) by :func:`conv3x3_dgrad` -- the same
   kernel run on the unpadded cotangent with a zero pad of 2 that its TMA
   loads supply, reading the forward's weight as the flipped, in/out-swapped
-  one -- and dk by :func:`conv3x3_wgrad`, the kernel in
+  one -- and dk by :func:`conv3x3_wgrad`, the TMA + wgmma kernel in
   ``csrc/conv3x3_wgrad.cu`` (f32 sums, returned in k's dtype). On CPU
   tensors both run their plain versions.
 
@@ -23,6 +23,7 @@ Nothing falls back: a CUDA input a kernel does not take raises.
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,10 +32,17 @@ from councilx_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_PIXELS = 2 ** 31 - 1   # output pixels: the kernels index them in int32
-# wgrad tiles (rows of the (9C, O) result, outputs, pixels per K' step) of
-# csrc/conv3x3_wgrad.cu, and about how many blocks fill the card
-_WGRAD_TILES = {torch.bfloat16: (128, 128, 32), torch.float32: (64, 64, 16)}
-_WGRAD_TARGET_BLOCKS = 528   # 4 per SM of an H100
+# the wgrad tiles of csrc/conv3x3_wgrad.cu: rows of the (9C, O) result,
+# outputs, pixels per K' step. bf16: one tap's 128 channels x 256 outputs,
+# one block per SM, so S splits of 9 ceil(C/128) ceil(O/256) tiles fill
+# the SMs in one wave; f32: about _WGRAD_F32_BLOCKS blocks fill the card
+_WGRAD_TILE = (128, 256, 64)
+_WGRAD_F32_TILE = (64, 64, 16)
+_WGRAD_F32_BLOCKS = 528      # 4 per SM of an H100
+_H100_SMS = 132
+# per (device index, stream): the bf16 wgrad kernel's int32 ticket counter
+# of each tile, zero between launches (the kernel resets the ones it uses)
+_wgrad_counters: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _acc_dtype(t: torch.Tensor) -> torch.dtype:
@@ -117,10 +125,10 @@ def _wgrad_lib() -> ctypes.CDLL:
     fn = lib.councilx_conv3x3_wgrad
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_longlong, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -215,15 +223,44 @@ def conv3x3_dgrad(g: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return dxp
 
 
-def _wgrad_split(dtype: torch.dtype, c: int, o: int, pixels: int):
-    """(splits, pixels per split) of the wgrad reduction: enough blocks to
-    fill the card, each split a whole number of the kernel's K' steps."""
-    bm, bn, bk = _WGRAD_TILES[dtype]
-    tiles = -(-9 * c // bm) * -(-o // bn)
+def _wgrad_tiles(c: int, o: int) -> int:
+    """Output tiles of the bf16 wgrad kernel: one tap's 128 channels x 256
+    outputs each."""
+    bm, bn, _ = _WGRAD_TILE
+    return 9 * -(-c // bm) * -(-o // bn)
+
+
+def _wgrad_split(dtype: torch.dtype, c: int, o: int, pixels: int,
+                 sms: int = _H100_SMS):
+    """(splits, pixels per split) of the wgrad reduction over B*H*W, each
+    split a whole number of the kernel's K' steps and none empty.
+
+    bf16: one block per SM, so at most ``sms // tiles`` splits (one wave;
+    at least 1): 7 at C = O = 256 on 132 SMs, 126 blocks. f32: about
+    _WGRAD_F32_BLOCKS blocks."""
+    if dtype == torch.bfloat16:
+        bk = _WGRAD_TILE[2]
+        want = max(1, sms // _wgrad_tiles(c, o))
+    else:
+        bm, bn, bk = _WGRAD_F32_TILE
+        tiles = -(-9 * c // bm) * -(-o // bn)
+        want = -(-_WGRAD_F32_BLOCKS // tiles)
     steps = -(-pixels // bk)
-    want = max(1, min(steps, -(-_WGRAD_TARGET_BLOCKS // tiles)))
+    want = max(1, min(steps, want))
     per = -(-steps // want) * bk
     return -(-pixels // per), per
+
+
+def _tile_counters(device: torch.device, stream: int,
+                   tiles: int) -> torch.Tensor:
+    """The zeroed int32 ticket counters of the bf16 wgrad kernel for
+    launches on ``stream``, at least ``tiles`` of them."""
+    key = (device.index, stream)
+    buf = _wgrad_counters.get(key)
+    if buf is None or buf.numel() < tiles:
+        buf = torch.zeros(max(tiles, 64), dtype=torch.int32, device=device)
+        _wgrad_counters[key] = buf
+    return buf
 
 
 def conv3x3_wgrad(xp: torch.Tensor, g: torch.Tensor,
@@ -231,9 +268,10 @@ def conv3x3_wgrad(xp: torch.Tensor, g: torch.Tensor,
     """dk of :func:`conv3x3_valid`: xp (B, H+2, W+2, C), g (B, H, W, O) ->
     (3, 3, C, O) in ``out_dtype``, summed in f32.
 
-    On a CUDA tensor: the split-K kernel of ``csrc/conv3x3_wgrad.cu``, whose
-    f32 partials are summed in fixed order (bit-deterministic);
-    ``conv3x3_wgrad.launches`` counts its launches."""
+    On a CUDA tensor: the kernel of ``csrc/conv3x3_wgrad.cu``, split over
+    B*H*W with its f32 partials summed in a fixed order (bit-deterministic;
+    bf16: one launch, TMA + wgmma, the sum in the same launch);
+    ``conv3x3_wgrad.launches`` counts its calls."""
     if xp.device.type == "cpu":
         return conv3x3_wgrad_reference(xp, g).to(out_dtype)
     b, hp, wp, c = xp.shape
@@ -250,16 +288,32 @@ def conv3x3_wgrad(xp: torch.Tensor, g: torch.Tensor,
     if g.data_ptr() % 16:
         raise ValueError("conv3x3_wgrad: inputs must be 16-byte aligned")
     h, w = hp - 2, wp - 2
-    splits, per = _wgrad_split(xp.dtype, c, o, b * h * w)
-    part = torch.empty((splits, 9 * c, o), dtype=torch.float32,
-                       device=xp.device)
+    if b * h * w > _MAX_PIXELS:
+        raise ValueError(f"conv3x3_wgrad: {b * h * w} pixels exceed the "
+                         f"kernel's int32 indexing")
     dk = torch.empty((3, 3, c, o), dtype=out_dtype, device=xp.device)
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream().cuda_stream
+        if xp.dtype == torch.bfloat16:
+            tiles = _wgrad_tiles(c, o)
+            sms = torch.cuda.get_device_properties(
+                xp.device).multi_processor_count
+            splits, per = _wgrad_split(xp.dtype, c, o, b * h * w, sms)
+            part = torch.empty(
+                (splits * tiles * _WGRAD_TILE[0] * _WGRAD_TILE[1]
+                 if splits > 1 else 0,), dtype=torch.float32,
+                device=xp.device)
+            counters = _tile_counters(xp.device, stream, tiles).data_ptr()
+        else:
+            splits, per = _wgrad_split(xp.dtype, c, o, b * h * w)
+            part = torch.empty((splits, 9 * c, o), dtype=torch.float32,
+                               device=xp.device)
+            counters = None
         err = _wgrad_lib().councilx_conv3x3_wgrad(
-            xp.data_ptr(), g.data_ptr(), part.data_ptr(), dk.data_ptr(),
-            b, h, w, c, o, _DTYPE_CODES[xp.dtype], _DTYPE_CODES[out_dtype],
-            splits, per, stream)
+            xp.data_ptr(), g.data_ptr(), part.data_ptr(), counters,
+            dk.data_ptr(), b, h, w, c, o,
+            _DTYPE_CODES[xp.dtype], _DTYPE_CODES[out_dtype], splits, per,
+            stream)
     if err != 0:
         raise RuntimeError(f"conv3x3_wgrad: kernel launch failed with CUDA "
                            f"error {err}")

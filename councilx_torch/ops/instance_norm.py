@@ -11,15 +11,18 @@ every device:
   does. On a CPU tensor the plain version
   :func:`instance_norm_forward_reference`.
 * backward (``_bwd_kernel``, ``_bwd_affine_kernel``): from the saved
-  statistics, :func:`instance_norm_backward` -- the Triton backward kernel
-  on CUDA, :func:`instance_norm_backward_reference` on the CPU.
+  statistics, :func:`instance_norm_backward` -- the CUDA kernel in
+  ``councilx_torch/csrc/instance_norm_bwd.cu`` (one cooperative launch that
+  splits HW) on a CUDA tensor, :func:`instance_norm_backward_reference` on
+  the CPU.
 
 Nothing falls back: a CUDA input the kernels do not take raises.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -27,8 +30,15 @@ from councilx_torch.ops import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _TILE = 8192            # elements per (BLOCK_HW, BLOCK_C) forward tile
-_BWD_TILE = 4096        # the backward holds two f32 accumulator tiles
 _TARGET_PROGRAMS = 128  # about one program per SM of an H100
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the backward kernel (csrc/instance_norm_bwd.cu): 256 threads per block,
+# groups of (sample, 64 channels)
+_BWD_THREADS = 256
+_BWD_CHANNELS = 64
+# co-resident blocks of each backward kernel variant, by (device index,
+# dtype code, vec, affine)
+_bwd_max_blocks: Dict[Tuple[int, int, int, bool], int] = {}
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -145,6 +155,66 @@ def _forward(x, gamma, beta, eps) -> Stats:
     return y, mean, rstd
 
 
+def _norm_bwd_vec(*tensors: torch.Tensor) -> int:
+    """Elements per thread of the backward kernel on NHWC tensors of one
+    dtype: one 16-byte vector (8 bf16 or 4 f32) where C is a multiple of
+    it and every tensor 16-byte aligned, else 1."""
+    vec = 16 // tensors[0].element_size()
+    if tensors[0].shape[-1] % vec or any(t.data_ptr() % 16 for t in tensors):
+        return 1
+    return vec
+
+
+def _norm_bwd_grid(b: int, hw: int, c: int, vec: int, max_blocks: int):
+    """(splits, rows per split) of HW for the backward kernel: groups of
+    (sample, 64 channels), each split into chunks of whole iterations (the
+    256 threads cover 256 / (64 / vec) pixel rows per iteration), as many
+    chunks as the card holds at once -- ``max_blocks``, the cooperative
+    launch's limit -- and none empty. Raises if the groups alone exceed
+    it."""
+    groups = b * -(-c // _BWD_CHANNELS)
+    if groups > max_blocks:
+        raise ValueError(f"instance_norm_backward: {groups} (sample, "
+                         f"channel block) groups exceed the {max_blocks} "
+                         f"blocks the card holds at once")
+    rows = _BWD_THREADS // (_BWD_CHANNELS // vec)
+    iters = -(-hw // rows)
+    want = max(1, min(iters, max_blocks // groups))
+    per = -(-iters // want)
+    return -(-iters // per), per * rows
+
+
+def _norm_bwd_lib() -> ctypes.CDLL:
+    lib = _build.load_cuda_library("instance_norm_bwd")
+    fn = lib.councilx_instance_norm_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        mb = lib.councilx_instance_norm_bwd_max_blocks
+        mb.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int)]
+        mb.restype = ctypes.c_int
+    return lib
+
+
+def _norm_bwd_capacity(device: torch.device, dtype: int, vec: int,
+                       affine: bool) -> int:
+    """Blocks of the (dtype, vec, affine) backward kernel that ``device``
+    holds at once (occupancy x SMs), asked of the runtime once."""
+    key = (device.index, dtype, vec, affine)
+    n = _bwd_max_blocks.get(key)
+    if n is None:
+        out = ctypes.c_int(0)
+        err = _norm_bwd_lib().councilx_instance_norm_bwd_max_blocks(
+            dtype, vec, int(affine), ctypes.byref(out))
+        if err != 0 or out.value < 1:
+            raise RuntimeError(f"instance_norm_backward: occupancy query "
+                               f"failed with CUDA error {err}")
+        n = _bwd_max_blocks[key] = out.value
+    return n
+
+
 def instance_norm_backward(dy: torch.Tensor, x: torch.Tensor,
                            mean: torch.Tensor, rstd: torch.Tensor,
                            gamma: Optional[torch.Tensor] = None):
@@ -152,33 +222,49 @@ def instance_norm_backward(dy: torch.Tensor, x: torch.Tensor,
     f32 statistics: -> (dx in dy's dtype, dgamma, dbeta), the last two
     (B, C) f32 with the affine and None without.
 
-    On a CUDA tensor: the Triton backward kernel (K5, or K6 with the
-    affine). ``instance_norm_backward.launches`` counts its launches and
+    On a CUDA tensor: the kernel of ``csrc/instance_norm_bwd.cu`` (K5, or K6
+    with the affine), one cooperative launch that splits HW over the card
+    and sums in a fixed order (bit-deterministic).
+    ``instance_norm_backward.launches`` counts its launches and
     ``instance_norm_backward.affine_launches`` those with the affine."""
     if dy.device.type == "cpu":
         return instance_norm_backward_reference(dy, x, mean, rstd, gamma)
     _check_cuda("instance_norm_backward", x, gamma)
     dy = dy.contiguous()
-    if dy.shape != x.shape or dy.device != x.device or dy.dtype not in _DTYPES:
+    if dy.shape != x.shape or dy.device != x.device or dy.dtype != x.dtype:
         raise ValueError(f"instance_norm_backward: dy {tuple(dy.shape)} "
-                         f"{dy.dtype} does not match x {tuple(x.shape)}")
+                         f"{dy.dtype} does not match x {tuple(x.shape)} "
+                         f"{x.dtype}")
     b, h, w, c = x.shape
+    if mean.shape != (b, c) or rstd.shape != (b, c):
+        raise ValueError(f"instance_norm_backward: mean/rstd must be "
+                         f"{(b, c)}, got {tuple(mean.shape)}")
+    mean = mean.float().contiguous()
+    rstd = rstd.float().contiguous()
     dx = torch.empty_like(dy)
     dgamma = dbeta = None
     if gamma is not None:
         gamma = gamma.float().contiguous()
         dgamma = torch.empty((b, c), dtype=torch.float32, device=x.device)
         dbeta = torch.empty_like(dgamma)
-    kernels = _build.load_triton_module("instance_norm_triton")
-    bc = _block_c(b, c)
+    dtype = _DTYPE_CODES[x.dtype]
+    vec = _norm_bwd_vec(dy, x, dx)
     with torch.cuda.device(x.device):
-        kernels.instance_norm_bwd_kernel[(b, -(-c // bc))](
-            dy, x, mean.contiguous(), rstd.contiguous(),
-            gamma if gamma is not None else mean, dx,
-            dgamma if dgamma is not None else mean,
-            dbeta if dbeta is not None else mean, h * w, c,
-            HAS_AFFINE=gamma is not None, BLOCK_HW=_BWD_TILE // bc,
-            BLOCK_C=bc, num_warps=8)
+        splits, rows = _norm_bwd_grid(
+            b, h * w, c, vec,
+            _norm_bwd_capacity(x.device, dtype, vec, gamma is not None))
+        part = torch.empty((b, splits, c, 2), dtype=torch.float32,
+                           device=x.device)
+        err = _norm_bwd_lib().councilx_instance_norm_bwd(
+            dy.data_ptr(), x.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+            gamma.data_ptr() if gamma is not None else None, dx.data_ptr(),
+            dgamma.data_ptr() if dgamma is not None else None,
+            dbeta.data_ptr() if dbeta is not None else None,
+            part.data_ptr(), b, h * w, c, dtype, vec, splits, rows,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"instance_norm_backward: cooperative launch "
+                           f"failed with CUDA error {err}")
     instance_norm_backward.launches += 1
     if gamma is not None:
         instance_norm_backward.affine_launches += 1

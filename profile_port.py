@@ -38,10 +38,11 @@ from councilx_torch.train.trainer import CouncilTrainer
 CLASSES = (
     ("K1/K1' conv3x3 (conv3x3.cu)", ("conv3x3_bf16_kernel",
                                      "conv3x3_f32_kernel")),
-    ("K2 wgrad (conv3x3_wgrad.cu)", ("wgrad_bf16_kernel",
+    ("K2 wgrad (conv3x3_wgrad.cu)", ("wgrad_wgmma_kernel",
                                      "wgrad_f32_kernel",
                                      "sum_splits_kernel")),
-    ("K5/K6 norm backward (Triton)", ("instance_norm_bwd_kernel",)),
+    ("K5/K6 norm backward (CUDA, instance_norm_bwd.cu)",
+     ("instance_norm_bwd_kernel",)),
     ("K3/K4 norm forward (Triton)", ("instance_norm_kernel",)),
     ("cuDNN / cuBLAS convs and matmuls", ("cudnn", "xmma", "gemm", "conv",
                                           "cutlass", "sm90_", "nchwTo",

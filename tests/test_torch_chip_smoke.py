@@ -1,4 +1,5 @@
-"""chip_smoke.py's bound arithmetic, and its refusal to run without a card.
+"""chip_smoke.py's bound arithmetic, and its refusal to run without a card;
+profile_port.py's classes of kernel names.
 
 chip_smoke imports only torch, numpy and councilx_torch. The least time it
 prints beside each kernel's measured time is computed from shapes alone,
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 import chip_smoke
+import profile_port
 
 CONV = (8, 64, 64, 256, 256)        # xp (8, 66, 66, 256), k (3, 3, 256, 256)
 
@@ -63,3 +65,23 @@ def test_chip_smoke_refuses_to_run_without_a_card():
         pytest.skip("a card is present: chip_smoke.py would run")
     with pytest.raises(SystemExit, match="no CUDA device"):
         chip_smoke.main()
+
+
+@pytest.mark.parametrize("name,label", [
+    ("(anonymous namespace)::wgrad_wgmma_kernel(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, float*, int*, float*, int, int)",
+     "K2 wgrad (conv3x3_wgrad.cu)"),
+    ("void (anonymous namespace)::instance_norm_bwd_kernel<__nv_bfloat16, "
+     "8, true>(__nv_bfloat16 const*, __nv_bfloat16 const*, float const*)",
+     "K5/K6 norm backward (CUDA, instance_norm_bwd.cu)"),
+    ("instance_norm_kernel", "K3/K4 norm forward (Triton)"),
+    ("void (anonymous namespace)::conv3x3_bf16_kernel<1>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, int, int, int, int, int, int)",
+     "K1/K1' conv3x3 (conv3x3.cu)"),
+    ("sm90_xmma_wgrad_indexed_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_"
+     "nhwc_tilesize64x256x64", "cuDNN / cuBLAS convs and matmuls"),
+])
+def test_profile_classes_take_the_ports_kernels_before_cudnn(name, label):
+    # the cuDNN class matches "conv", "wgrad" and "dgrad" substrings, so the
+    # port's kernels must be claimed first
+    assert profile_port.classify(name) == label

@@ -171,9 +171,16 @@ def test_autograd_through_the_kernels_matches_plain(cuda, dtype):
             _close(a, b, 2 ** -6 if dtype == torch.bfloat16 else 1e-4)
 
 
+# the wgrad's own ragged shapes: B*H*W not a multiple of its 64-pixel K'
+# step times its splits, C past one 128-channel tile and not a multiple of
+# 64, O past one 256-output tile; and 135 tiles, more than the 132 SMs of
+# an H100, so one split
+WGRAD_SHAPES = [(2, 33, 31, 200, 264), (1, 4, 4, 1920, 256)]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,h,w,c,o", [(8, 64, 64, 256, 256)]
-                         + CONV_SHAPES[1:])
+                         + CONV_SHAPES[1:] + WGRAD_SHAPES)
 def test_conv3x3_backward_kernels_match_plain(cuda, dtype, b, h, w, c, o):
     g = torch.Generator(device=cuda).manual_seed(3)
     xp = torch.randn(b, h + 2, w + 2, c, device=cuda, generator=g).to(dtype)
@@ -245,6 +252,67 @@ def test_conv3x3_dgrad_launches_from_a_fresh_thread(cuda):
     _close(out["dxp"], conv3x3_dgrad_reference(gy.float(), k.float()), 2 ** -7)
 
 
+def _device_kernels(fn):
+    """The names of the device kernels that one call of fn runs."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def test_conv3x3_wgrad_is_one_kernel(cuda):
+    """bf16: the split partials are summed in the same launch, so one
+    device kernel per call (no second summing kernel, no memset)."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    xp = torch.randn(2, 18, 18, 128, device=cuda, generator=g).bfloat16()
+    gy = torch.randn(2, 16, 16, 128, device=cuda, generator=g).bfloat16()
+    kernels = _device_kernels(lambda: conv3x3_wgrad(xp, gy, torch.bfloat16))
+    assert len(kernels) == 1 and "wgrad_wgmma_kernel" in kernels[0], kernels
+
+
+@pytest.mark.parametrize("affine", [False, True])
+def test_instance_norm_backward_is_one_kernel(cuda, affine):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn(2, 16, 16, 128, device=cuda, generator=g).bfloat16()
+    dy = torch.randn(2, 16, 16, 128, device=cuda, generator=g).bfloat16()
+    gm = (torch.randn(2, 128, device=cuda, generator=g) if affine
+          else None)
+    _, mean, rstd = instance_norm_forward_reference(x, gm, gm)
+    kernels = _device_kernels(
+        lambda: instance_norm_backward(dy, x, mean, rstd, gm))
+    assert (len(kernels) == 1
+            and "instance_norm_bwd_kernel" in kernels[0]), kernels
+
+
+def test_conv3x3_wgrad_launches_from_a_fresh_thread(cuda):
+    """The wgrad encodes tensor maps too, inside autograd's backward worker
+    (a thread whose first CUDA call its launch may be)."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    xp = torch.randn(2, 10, 9, 16, device=cuda, generator=g).bfloat16()
+    gy = torch.randn(2, 8, 7, 24, device=cuda, generator=g).bfloat16()
+    out = {}
+
+    def run():
+        try:
+            out["dk"] = conv3x3_wgrad(xp, gy, torch.bfloat16)
+            torch.cuda.synchronize()
+        except Exception as e:      # re-raised in the test's thread
+            out["error"] = e
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive()
+    if "error" in out:
+        raise out["error"]
+    _close(out["dk"], conv3x3_wgrad_reference(xp, gy), 2 ** -7)
+
+
 def test_conv3x3_wgrad_is_deterministic(cuda):
     g = torch.Generator(device=cuda).manual_seed(4)
     xp = torch.randn(8, 66, 66, 256, device=cuda, generator=g).bfloat16()
@@ -256,9 +324,16 @@ def test_conv3x3_wgrad_is_deterministic(cuda):
                        conv3x3_wgrad(xp.float(), gy.float()))
 
 
+# the norm backward's shapes: the three of the train step's sites, small
+# ones, and ragged ones: C not a multiple of the 16-byte vector (scalar
+# loads), C past one 64-channel group
+NORM_BWD_SHAPES = [(8, 64, 64, 256), (8, 128, 128, 128), (8, 256, 256, 64),
+                   (2, 32, 32, 64), (2, 5, 7, 24), (2, 5, 7, 6),
+                   (1, 3, 3, 200)]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", [(8, 64, 64, 256), (2, 32, 32, 64),
-                                   (2, 5, 7, 24)])
+@pytest.mark.parametrize("shape", NORM_BWD_SHAPES)
 @pytest.mark.parametrize("affine", [False, True])
 def test_instance_norm_backward_kernel_matches_plain(cuda, dtype, shape,
                                                      affine):
@@ -278,6 +353,24 @@ def test_instance_norm_backward_kernel_matches_plain(cuda, dtype, shape,
         _close(got[2], want[2], 1e-4)
     else:
         assert got[1] is None and got[2] is None
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(8, 64, 64, 256), (2, 5, 7, 24)])
+@pytest.mark.parametrize("affine", [False, True])
+def test_instance_norm_backward_is_deterministic(cuda, dtype, shape, affine):
+    """Split over HW, the partial sums are added in a fixed order: two calls
+    on the same inputs are bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = (torch.randn(*shape, device=cuda, generator=g) * 3 + 1).to(dtype)
+    dy = torch.randn(*shape, device=cuda, generator=g).to(dtype)
+    gm = (torch.randn(shape[0], shape[3], device=cuda, generator=g)
+          if affine else None)
+    _, mean, rstd = instance_norm_forward_reference(x, gm, gm)
+    a = instance_norm_backward(dy, x, mean, rstd, gm)
+    b = instance_norm_backward(dy, x, mean, rstd, gm)
+    for u, v in zip(a, b):
+        assert (u is None and v is None) or torch.equal(u, v)
 
 
 def test_train_step_on_gpu_matches_cpu(cuda):
