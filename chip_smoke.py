@@ -8,18 +8,19 @@ Runs from the root of a checkout; imports nothing of JAX or ``councilx``.
 Phases, in order; any failure raises and exits non-zero:
 
 1. device: a CUDA card is required; print its name and power limit;
-2. build: compile the CUDA kernels (``CUDA_SOURCES``: conv3x3 forward and
-   dgrad, conv3x3 wgrad, the IN/AdaIN backward; one ``nvcc`` per source,
-   in parallel) and import the Triton norm forward from the checkout's
-   sources;
+2. build: compile the CUDA kernels from the checkout's sources
+   (``CUDA_SOURCES``: conv3x3 forward and dgrad, conv3x3 wgrad, the
+   IN/AdaIN forward, the IN/AdaIN backward; one ``nvcc`` per source, in
+   parallel);
 3. each kernel against its plain PyTorch version on the card, at the
    serving and training paths' shapes, in bf16 and f32 (TF32 off for the
    plain versions): max abs error against a stated tolerance; median
    device times (:func:`device_ms`) of the kernel, its plain version and
    one PyTorch library call that computes the same function (a yardstick
    the port never calls), and the least time the card could take
-   (:func:`bound_ms`); the conv's host time per call; the wgrad and norm
-   backward kernels twice each, bit-equal;
+   (:func:`bound_ms`); the conv's host time per call; the wgrad and the
+   norm kernels twice each, bit-equal; the norm forward's f32 mean and
+   rstd held too, also at serving's bucket 64 (its plain launch);
 4. the serving slice at full width (council-4, 256px, dim 64, n_res 4,
    bf16, random weights from a seed): 4 members saved as a reference
    ``.pt``, loaded through ``councilx_torch.cli.serve.build_engine``,
@@ -57,6 +58,7 @@ from councilx_torch.config import Config
 from councilx_torch.inference.translate import Translator
 from councilx_torch.ops import _build
 from councilx_torch.ops import conv3x3 as conv_ops
+from councilx_torch.ops import instance_norm as norm_ops
 from councilx_torch.ops.conv3x3 import (conv3x3_dgrad,
                                         conv3x3_dgrad_reference,
                                         conv3x3_valid, conv3x3_valid_reference,
@@ -64,7 +66,7 @@ from councilx_torch.ops.conv3x3 import (conv3x3_dgrad,
                                         hwio_weight)
 from councilx_torch.ops.instance_norm import (
     instance_norm, instance_norm_backward, instance_norm_backward_reference,
-    instance_norm_forward_reference, instance_norm_reference)
+    instance_norm_forward_reference)
 from councilx_torch.train.trainer import CouncilTrainer
 
 # configs/soak_256_council4.yaml, the flagship serving model
@@ -121,9 +123,18 @@ REDUCED = {
 
 
 # every CUDA source of councilx_torch/csrc, built in phase 2
-CUDA_SOURCES = ("conv3x3", "conv3x3_wgrad", "instance_norm_bwd")
+CUDA_SOURCES = ("conv3x3", "conv3x3_wgrad", "instance_norm_fwd",
+                "instance_norm_bwd")
 # kernels whose two launches on the same inputs must be bit-equal
-DETERMINISTIC = ("conv3x3_wgrad", "instance_norm_bwd", "adain_bwd")
+DETERMINISTIC = ("conv3x3_wgrad", "instance_norm", "adain",
+                 "instance_norm_bwd", "adain_bwd")
+# the norm sites of the serving and training paths (the 7x7 block's
+# output, the second downsample's, the resblocks'), at bucket 8
+NORM_SHAPES = ((BATCH, 64, 64, 256), (BATCH, 128, 128, 128),
+               (BATCH, 256, 256, 64))
+# the resblocks' norm site at serving's largest bucket (cli/serve.py
+# --max_batch): one chunk per group, the norm forward's plain launch
+NORM_BUCKET64 = (64, 64, 64, 256)
 
 # the card's peak rates (NVIDIA H100 SXM data sheet, dense, at the full
 # 700 W): bf16 on the tensor cores, f32 on the FMA units, device memory
@@ -292,6 +303,8 @@ def phase_kernels(g: torch.Generator, card_str: str) -> dict:
             in another order;
       f32 wgrad: 1e-4 * m -- f32 sums of 32768 terms in another order;
       f32 norm forward: 1e-5 * m -- f32 sums over HW in another order;
+            the same for its f32 mean and rstd in either dtype, each
+            against its own largest value;
       f32 norm backward: 1e-4 * m -- f32 sums over HW (up to 65536) in
             another order, then a difference of like terms.
 
@@ -318,8 +331,6 @@ def phase_kernels(g: torch.Generator, card_str: str) -> dict:
                ("norm_bwd", torch.bfloat16): 2 ** -6,
                ("norm_bwd", torch.float32): 1e-4}
     cases = []
-    norm_shapes = ((BATCH, 64, 64, 256), (BATCH, 128, 128, 128),
-                   (BATCH, 256, 256, 64))
     conv_shape = (BATCH, 64, 64, 256, 256)
     for dt in (torch.bfloat16, torch.float32):
         xp = torch.randn(BATCH, 66, 66, 256, device="cuda",
@@ -352,12 +363,13 @@ def phase_kernels(g: torch.Generator, card_str: str) -> dict:
                       conv_bwd([False, True, False])))
         if dt == torch.bfloat16:
             conv_host_times(xp, k, gy, card_str)
-        for shape in norm_shapes[::2]:
+        # the norm forward's wrapper and plain version: (y, mean, rstd)
+        for shape in NORM_SHAPES + (NORM_BUCKET64,):
             x = (torch.randn(*shape, device="cuda", generator=g) * 3
                  + 1).to(dt)
             cases.append(("instance_norm", "norm", dt, shape, shape,
-                          lambda x=x: instance_norm(x),
-                          lambda x=x: instance_norm_reference(x),
+                          lambda x=x: norm_ops._forward(x, None, None, 1e-5),
+                          lambda x=x: instance_norm_forward_reference(x),
                           lambda x=x: F.instance_norm(
                               x.permute(0, 3, 1, 2), eps=1e-5)))
         x = (torch.randn(BATCH, 64, 64, 256, device="cuda", generator=g) * 3
@@ -372,15 +384,16 @@ def phase_kernels(g: torch.Generator, card_str: str) -> dict:
                 weight=gm.flatten(), bias=bt.flatten(), eps=1e-5)
 
         cases.append(("adain", "norm", dt, tuple(x.shape), tuple(x.shape),
-                      lambda x=x, gm=gm, bt=bt: instance_norm(x, gm, bt),
-                      lambda x=x, gm=gm, bt=bt: instance_norm_reference(
-                          x, gm, bt),
+                      lambda x=x, gm=gm, bt=bt: norm_ops._forward(
+                          x, gm, bt, 1e-5),
+                      lambda x=x, gm=gm, bt=bt:
+                          instance_norm_forward_reference(x, gm, bt),
                       lambda x=x, gm=gm, bt=bt: adain_lib(x, gm, bt)))
-        for shape in norm_shapes:
+        for shape in NORM_SHAPES:
             x = (torch.randn(*shape, device="cuda", generator=g) * 3
                  + 1).to(dt)
             dy = torch.randn(*shape, device="cuda", generator=g).to(dt)
-            affine = shape == norm_shapes[0]
+            affine = shape == NORM_SHAPES[0]
             for gmm in ((None, gm) if affine else (None,)):
                 _, mean, rstd = instance_norm_forward_reference(x, gmm, gmm)
                 if dt == torch.bfloat16 and gmm is not None:
@@ -415,14 +428,19 @@ def phase_kernels(g: torch.Generator, card_str: str) -> dict:
         got = kern()
         torch.cuda.synchronize()
         ref = plain()
-        if isinstance(got, tuple):     # norm backward: (dx, dgamma, dbeta)
+        # norm forward: (y, mean, rstd); backward: (dx, dgamma, dbeta)
+        if isinstance(got, tuple):
             pairs = [(a, b) for a, b in zip(got, ref) if b is not None]
         else:
             pairs = [(got, ref)]
-        # each output (dx, dgamma, dbeta) against its own largest value
+        # each output against its own largest value; the forward's f32
+        # statistics at the f32 tolerance
+        rels = [tol_rel[(kind, dt)]] + [
+            tol_rel[(kind, torch.float32 if kind == "norm" else dt)]] * (
+                len(pairs) - 1)
         errs = [(a.float() - b.float()).abs().max().item() for a, b in pairs]
-        tols = [tol_rel[(kind, dt)] * b.float().abs().max().item()
-                for _, b in pairs]
+        tols = [r * b.float().abs().max().item()
+                for r, (_, b) in zip(rels, pairs)]
         err = max(errs)
         ms, plain_ms, library_ms = time_turns(kern, plain, library)
         esize = 2 if dt == torch.bfloat16 else 4
@@ -522,7 +540,7 @@ def phase_serve(card_str: str, tmp: str):
         stats = engine.snapshot_stats()
         check_counts(launches, stats["batches"], "member 0")
         # bf16 roundings depend on the batch shape (library algorithm
-        # choices, the norm kernel's channel blocking), so the direct
+        # choices, the norm kernels' split of HW), so the direct
         # reference runs at the engine's bucket: the requests must have
         # coalesced into full buckets of BATCH
         if stats["batch_size_histogram"] != {BATCH: n_req // BATCH}:
@@ -778,7 +796,6 @@ def main():
 
     t0 = time.perf_counter()
     _build.build_cuda_libraries(CUDA_SOURCES)
-    _build.load_triton_module("instance_norm_triton")
     log(f"[build] {time.perf_counter() - t0:.6g} s "
         f"{json.dumps(_build.build_seconds)}")
 
@@ -798,7 +815,7 @@ def main():
     adain_bwd_l = launches["instance_norm_backward.affine_launches"]
     conv_shape = (BATCH, 66, 66, 256)
     main_shape = (BATCH, 64, 64, 256)
-    norm_src = "councilx_torch/csrc/instance_norm_triton.py"
+    norm_src = "councilx_torch/csrc/instance_norm_fwd.cu"
     norm_bwd_src = "councilx_torch/csrc/instance_norm_bwd.cu"
     entries = [
         ("conv3x3", "cuda", "councilx_torch/csrc/conv3x3.cu",
@@ -813,10 +830,10 @@ def main():
          "councilx/ops/pallas_conv.py:178",
          launches["conv3x3_wgrad.launches"],
          kres[("conv3x3_wgrad", "bf16", conv_shape)]),
-        ("instance_norm", "triton", norm_src,
+        ("instance_norm", "cuda", norm_src,
          "councilx/ops/pallas_norm.py:56", norm_l - adain_l,
          kres[("instance_norm", "bf16", main_shape)]),
-        ("adain", "triton", norm_src, "councilx/ops/pallas_norm.py:67",
+        ("adain", "cuda", norm_src, "councilx/ops/pallas_norm.py:67",
          adain_l, kres[("adain", "bf16", main_shape)]),
         ("instance_norm_bwd", "cuda", norm_bwd_src,
          "councilx/ops/pallas_norm.py:121", bwd_l - adain_bwd_l,

@@ -45,53 +45,14 @@
 //     (8, 64, 64, 256) bf16, 67 MB at (8, 256, 256, 64)).
 
 #include <cooperative_groups.h>
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+
+#include "norm.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int CB = 64;             // channels per group
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void from_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void from_f32(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-// VEC elements at p into f32, as one 16-byte load where VEC fills one.
-template <typename T, int VEC>
-__device__ __forceinline__ void load_vec(const T* p, float (&v)[VEC]) {
-  if constexpr (VEC * sizeof(T) == 16) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) v[i] = to_f32(e[i]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) v[i] = to_f32(p[i]);
-  }
-}
-
-template <typename T, int VEC>
-__device__ __forceinline__ void store_vec(T* p, const float (&v)[VEC]) {
-  if constexpr (VEC * sizeof(T) == 16) {
-    uint4 raw;
-    T* e = reinterpret_cast<T*>(&raw);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) from_f32(e + i, v[i]);
-    *reinterpret_cast<uint4*>(p) = raw;
-  } else {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) from_f32(p + i, v[i]);
-  }
-}
+using namespace inorm;
 
 // Grid: B * cgroups * splits blocks; block (group, s) = (bid / splits,
 // bid % splits), group = (b, channel block). Chunk s covers rows
@@ -233,16 +194,7 @@ extern "C" int councilx_instance_norm_bwd_max_blocks(int dtype, int vec,
                                                      int* blocks) {
   const void* fn = pick(dtype, vec, affine);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, THREADS,
-                                                        0);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *blocks = per_sm * sms;
-  return 0;
+  return static_cast<int>(co_resident_blocks(fn, 0, blocks));
 }
 
 // dy, x, dx (B, HW, C) of one dtype (0 = float32, 1 = bfloat16); mean,

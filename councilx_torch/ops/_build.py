@@ -7,12 +7,8 @@ under ``build/councilx_torch_kernels/`` beside the package and loaded with
 header in ``csrc/`` (``*.cuh``, ``*.h``) and of the flags, so an edited
 source or header is never served by a stale build.
 
-Triton kernels live in ``councilx_torch/csrc/*_triton.py`` and are imported
-from there at first use, because ``triton`` exists only where there is a
-GPU; Triton's own compile cache is kept in the same build directory.
-
-Both happen under one lock, so the serving engine's threads cannot race a
-build; :func:`build_cuda_libraries` runs one ``nvcc`` per source at once.
+Builds happen under one lock, so the serving engine's threads cannot race
+a build; :func:`build_cuda_libraries` runs one ``nvcc`` per source at once.
 There is no fallback: a failed build raises.
 """
 
@@ -21,13 +17,11 @@ from __future__ import annotations
 import ctypes
 import glob
 import hashlib
-import importlib.util
 import os
 import shutil
 import subprocess
 import threading
 import time
-from types import ModuleType
 from typing import Dict
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -39,8 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-_modules: Dict[str, ModuleType] = {}
-# seconds each build or import took in this process, by source name
+# seconds each build took in this process, by source name
 build_seconds: Dict[str, float] = {}
 
 
@@ -115,22 +108,3 @@ def load_cuda_library(name: str) -> ctypes.CDLL:
         lib = _libs[name]
     return lib
 
-
-def load_triton_module(name: str) -> ModuleType:
-    """Import ``csrc/<name>.py`` (a module of ``@triton.jit`` kernels)."""
-    with _lock:
-        mod = _modules.get(name)
-        if mod is not None:
-            return mod
-        t0 = time.perf_counter()
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        os.environ.setdefault("TRITON_CACHE_DIR",
-                              os.path.join(BUILD_DIR, "triton"))
-        path = os.path.join(CSRC_DIR, f"{name}.py")
-        spec = importlib.util.spec_from_file_location(
-            f"councilx_torch._csrc_{name}", path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        _modules[name] = mod
-        build_seconds[name] = time.perf_counter() - t0
-        return mod

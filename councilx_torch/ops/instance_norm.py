@@ -4,8 +4,10 @@ Counterpart of ``councilx/ops/pallas_norm.py::instance_norm_pallas`` with
 its custom VJP. :func:`instance_norm` is a ``torch.autograd.Function`` on
 every device:
 
-* forward (``_fwd_kernel``, ``_fwd_affine_kernel``): the Triton kernel in
-  ``councilx_torch/csrc/instance_norm_triton.py`` on a CUDA tensor, at every
+* forward (``_fwd_kernel``, ``_fwd_affine_kernel``): on a CUDA tensor the
+  kernel in ``councilx_torch/csrc/instance_norm_fwd.cu`` (HW split over the
+  card, each chunk's first rows kept in shared memory across one grid-wide
+  wait; one plain launch when the groups alone fill the card), at every
   shape (the JAX package's VMEM gate is a TPU fact, not semantics); it also
   returns the per-(sample, channel) f32 mean and rstd, as ``_in_core_fwd``
   does. On a CPU tensor the plain version
@@ -29,13 +31,17 @@ import torch
 from councilx_torch.ops import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_TILE = 8192            # elements per (BLOCK_HW, BLOCK_C) forward tile
-_TARGET_PROGRAMS = 128  # about one program per SM of an H100
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the backward kernel (csrc/instance_norm_bwd.cu): 256 threads per block,
+# both kernels (THREADS and CB of csrc/norm.cuh): 256 threads per block,
 # groups of (sample, 64 channels)
-_BWD_THREADS = 256
-_BWD_CHANNELS = 64
+_NORM_THREADS = 256
+_NORM_CHANNELS = 64
+# the least iterations of a forward chunk where HW allows: a chunk of 8
+# (256 bf16 rows) spends more on its share of the merge than it reads
+_FWD_MIN_ITERS = 16
+# (stash bytes, co-resident blocks) of each forward kernel variant, by
+# (device index, dtype code, vec, affine)
+_fwd_plans: Dict[Tuple[int, int, int, bool], Tuple[int, int]] = {}
 # co-resident blocks of each backward kernel variant, by (device index,
 # dtype code, vec, affine)
 _bwd_max_blocks: Dict[Tuple[int, int, int, bool], int] = {}
@@ -98,15 +104,6 @@ def instance_norm_backward_reference(dy: torch.Tensor, x: torch.Tensor,
     return dx.to(dy.dtype), dgamma, dbeta
 
 
-def _block_c(b: int, c: int) -> int:
-    """Channels per program: the widest power of two (8 to 64) that still
-    gives about _TARGET_PROGRAMS programs, so small batches fill the card."""
-    bc = 64
-    while bc > 8 and b * -(-c // bc) < _TARGET_PROGRAMS:
-        bc //= 2
-    return bc
-
-
 def _check_cuda(name: str, x: torch.Tensor, gamma: Optional[torch.Tensor]):
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
@@ -127,6 +124,76 @@ def _check_cuda(name: str, x: torch.Tensor, gamma: Optional[torch.Tensor]):
             raise ValueError(f"{name}: gamma/beta on another device")
 
 
+def _norm_vec(*tensors: torch.Tensor) -> int:
+    """Elements per thread of the norm kernels on NHWC tensors of one
+    dtype: one 16-byte vector (8 bf16 or 4 f32) where C is a multiple of
+    it and every tensor 16-byte aligned, else 1."""
+    vec = 16 // tensors[0].element_size()
+    if tensors[0].shape[-1] % vec or any(t.data_ptr() % 16 for t in tensors):
+        return 1
+    return vec
+
+
+def _split_rows(hw: int, vec: int, want: int) -> Tuple[int, int]:
+    """(splits, rows per split) of HW into at most ``want`` chunks of whole
+    iterations of the norm kernels' 256 threads (64 / vec threads per pixel
+    row), none empty."""
+    rows = _NORM_THREADS // (_NORM_CHANNELS // vec)
+    iters = -(-hw // rows)
+    per = -(-iters // max(1, min(iters, want)))
+    return -(-iters // per), per * rows
+
+
+def _norm_fwd_grid(b: int, hw: int, c: int, vec: int, esize: int,
+                   stash_bytes: int, capacity: int) -> Tuple[int, int, int]:
+    """(splits, rows per split, stashed iterations) of the forward kernel:
+    groups of (sample, 64 channels), each split into chunks of whole
+    iterations, as many as the card holds at once (``capacity`` blocks of
+    the cooperative kernel, from :func:`_norm_fwd_plan`) but none shorter
+    than ``_FWD_MIN_ITERS`` iterations where HW allows, none empty. Each
+    block keeps its chunk's first iterations in shared memory, at most
+    ``stash_bytes``. When the groups alone reach ``capacity``: one split,
+    one block per group, and the kernel's plain launch of any size."""
+    groups = b * -(-c // _NORM_CHANNELS)
+    per_iter = _NORM_THREADS // (_NORM_CHANNELS // vec)
+    want = 1 if groups >= capacity else min(
+        capacity // groups, -(-hw // per_iter) // _FWD_MIN_ITERS)
+    splits, rows = _split_rows(hw, vec, want)
+    return splits, rows, min(rows // per_iter,
+                             stash_bytes // (_NORM_THREADS * vec * esize))
+
+
+def _norm_fwd_lib() -> ctypes.CDLL:
+    lib = _build.load_cuda_library("instance_norm_fwd")
+    fn = lib.councilx_instance_norm_fwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+            ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        plan = lib.councilx_instance_norm_fwd_plan
+        plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+        plan.restype = ctypes.c_int
+    return lib
+
+
+def _norm_fwd_plan(device: torch.device, dtype: int, vec: int,
+                   affine: bool) -> Tuple[int, int]:
+    """(stash bytes per block, co-resident blocks) of the (dtype, vec,
+    affine) forward kernel on ``device``, its stash sized for two blocks
+    per SM, asked of the runtime once."""
+    key = (device.index, dtype, vec, affine)
+    plan = _fwd_plans.get(key)
+    if plan is None:
+        stash, cap = ctypes.c_int(0), ctypes.c_int(0)
+        err = _norm_fwd_lib().councilx_instance_norm_fwd_plan(
+            dtype, vec, int(affine), ctypes.byref(stash), ctypes.byref(cap))
+        if err != 0 or cap.value < 1:
+            raise RuntimeError(f"instance_norm: occupancy query failed with "
+                               f"CUDA error {err}")
+        plan = _fwd_plans[key] = (stash.value, cap.value)
+    return plan
+
+
 def _forward(x, gamma, beta, eps) -> Stats:
     if x.device.type == "cpu":
         return instance_norm_forward_reference(x, gamma, beta, eps)
@@ -141,47 +208,42 @@ def _forward(x, gamma, beta, eps) -> Stats:
     y = torch.empty_like(x)
     mean = torch.empty((b, c), dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mean)
-    kernels = _build.load_triton_module("instance_norm_triton")
-    bc = _block_c(b, c)
+    dtype = _DTYPE_CODES[x.dtype]
+    vec = _norm_vec(x, y)
     with torch.cuda.device(x.device):
-        kernels.instance_norm_kernel[(b, -(-c // bc))](
-            x, y, gamma if gamma is not None else y,
-            beta if beta is not None else y, mean, rstd, h * w, c, eps,
-            HAS_AFFINE=gamma is not None, BLOCK_HW=_TILE // bc, BLOCK_C=bc,
-            num_warps=8)
+        splits, rows, stash = _norm_fwd_grid(
+            b, h * w, c, vec, x.element_size(),
+            *_norm_fwd_plan(x.device, dtype, vec, gamma is not None))
+        part = (torch.empty((b, splits, c, 3), dtype=torch.float32,
+                            device=x.device) if splits > 1 else None)
+        err = _norm_fwd_lib().councilx_instance_norm_fwd(
+            x.data_ptr(), gamma.data_ptr() if gamma is not None else None,
+            beta.data_ptr() if beta is not None else None, y.data_ptr(),
+            mean.data_ptr(), rstd.data_ptr(),
+            part.data_ptr() if part is not None else None, b, h * w, c,
+            dtype, vec, splits, rows, stash, eps,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"instance_norm: launch failed with CUDA error "
+                           f"{err}")
     instance_norm.launches += 1
     if gamma is not None:
         instance_norm.affine_launches += 1
     return y, mean, rstd
 
 
-def _norm_bwd_vec(*tensors: torch.Tensor) -> int:
-    """Elements per thread of the backward kernel on NHWC tensors of one
-    dtype: one 16-byte vector (8 bf16 or 4 f32) where C is a multiple of
-    it and every tensor 16-byte aligned, else 1."""
-    vec = 16 // tensors[0].element_size()
-    if tensors[0].shape[-1] % vec or any(t.data_ptr() % 16 for t in tensors):
-        return 1
-    return vec
-
-
 def _norm_bwd_grid(b: int, hw: int, c: int, vec: int, max_blocks: int):
     """(splits, rows per split) of HW for the backward kernel: groups of
-    (sample, 64 channels), each split into chunks of whole iterations (the
-    256 threads cover 256 / (64 / vec) pixel rows per iteration), as many
-    chunks as the card holds at once -- ``max_blocks``, the cooperative
-    launch's limit -- and none empty. Raises if the groups alone exceed
-    it."""
-    groups = b * -(-c // _BWD_CHANNELS)
+    (sample, 64 channels), each split into chunks of whole iterations, as
+    many chunks as the card holds at once -- ``max_blocks``, the
+    cooperative launch's limit -- and none empty. Raises if the groups
+    alone exceed it."""
+    groups = b * -(-c // _NORM_CHANNELS)
     if groups > max_blocks:
         raise ValueError(f"instance_norm_backward: {groups} (sample, "
                          f"channel block) groups exceed the {max_blocks} "
                          f"blocks the card holds at once")
-    rows = _BWD_THREADS // (_BWD_CHANNELS // vec)
-    iters = -(-hw // rows)
-    want = max(1, min(iters, max_blocks // groups))
-    per = -(-iters // want)
-    return -(-iters // per), per * rows
+    return _split_rows(hw, vec, max_blocks // groups)
 
 
 def _norm_bwd_lib() -> ctypes.CDLL:
@@ -248,7 +310,7 @@ def instance_norm_backward(dy: torch.Tensor, x: torch.Tensor,
         dgamma = torch.empty((b, c), dtype=torch.float32, device=x.device)
         dbeta = torch.empty_like(dgamma)
     dtype = _DTYPE_CODES[x.dtype]
-    vec = _norm_bwd_vec(dy, x, dx)
+    vec = _norm_vec(dy, x, dx)
     with torch.cuda.device(x.device):
         splits, rows = _norm_bwd_grid(
             b, h * w, c, vec,

@@ -43,7 +43,8 @@ CLASSES = (
                                      "sum_splits_kernel")),
     ("K5/K6 norm backward (CUDA, instance_norm_bwd.cu)",
      ("instance_norm_bwd_kernel",)),
-    ("K3/K4 norm forward (Triton)", ("instance_norm_kernel",)),
+    ("K3/K4 norm forward (CUDA, instance_norm_fwd.cu)",
+     ("instance_norm_fwd_kernel",)),
     ("cuDNN / cuBLAS convs and matmuls", ("cudnn", "xmma", "gemm", "conv",
                                           "cutlass", "sm90_", "nchwTo",
                                           "nhwcTo", "wgrad_alg", "dgrad")),

@@ -1,5 +1,6 @@
-"""chip_smoke.py's bound arithmetic, and its refusal to run without a card;
-profile_port.py's classes of kernel names.
+"""chip_smoke.py's bound arithmetic, and its refusal (and
+time_norm_forward.py's) to run without a card; profile_port.py's classes
+of kernel names.
 
 chip_smoke imports only torch, numpy and councilx_torch. The least time it
 prints beside each kernel's measured time is computed from shapes alone,
@@ -13,6 +14,7 @@ import torch
 
 import chip_smoke
 import profile_port
+import time_norm_forward
 
 CONV = (8, 64, 64, 256, 256)        # xp (8, 66, 66, 256), k (3, 3, 256, 256)
 
@@ -24,7 +26,10 @@ CONV = (8, 64, 64, 256, 256)        # xp (8, 66, 66, 256), k (3, 3, 256, 256)
     ("conv3x3_wgrad", CONV, 0.03908, "operations"),
     # x read and y written, 2 x 16.78 MB, + 16 KB of f32 mean and rstd
     ("instance_norm", (8, 64, 64, 256), 0.01002, "bytes"),
+    ("instance_norm", (8, 128, 128, 128), 0.02003, "bytes"),
     ("instance_norm", (8, 256, 256, 64), 0.04007, "bytes"),
+    # serving's bucket 64: 2 x 134.2 MB + 131 KB
+    ("instance_norm", chip_smoke.NORM_BUCKET64, 0.08017, "bytes"),
     ("adain", (8, 64, 64, 256), 0.01003, "bytes"),
     # dy and x read, dx written: 3 x 16.78 MB at (8, 64, 64, 256)
     ("instance_norm_bwd", (8, 64, 64, 256), 0.01503, "bytes"),
@@ -67,6 +72,14 @@ def test_chip_smoke_refuses_to_run_without_a_card():
         chip_smoke.main()
 
 
+def test_time_norm_forward_refuses_to_run_without_a_card(monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: time_norm_forward.py would run")
+    monkeypatch.setattr("sys.argv", ["time_norm_forward.py"])
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        time_norm_forward.main()
+
+
 @pytest.mark.parametrize("name,label", [
     ("(anonymous namespace)::wgrad_wgmma_kernel(CUtensorMap_st, "
      "CUtensorMap_st, CUtensorMap_st, float*, int*, float*, int, int)",
@@ -74,7 +87,9 @@ def test_chip_smoke_refuses_to_run_without_a_card():
     ("void (anonymous namespace)::instance_norm_bwd_kernel<__nv_bfloat16, "
      "8, true>(__nv_bfloat16 const*, __nv_bfloat16 const*, float const*)",
      "K5/K6 norm backward (CUDA, instance_norm_bwd.cu)"),
-    ("instance_norm_kernel", "K3/K4 norm forward (Triton)"),
+    ("void (anonymous namespace)::instance_norm_fwd_kernel<__nv_bfloat16, "
+     "8, true, true>(__nv_bfloat16 const*, float const*, float const*)",
+     "K3/K4 norm forward (CUDA, instance_norm_fwd.cu)"),
     ("void (anonymous namespace)::conv3x3_bf16_kernel<1>(CUtensorMap_st, "
      "CUtensorMap_st, CUtensorMap_st, int, int, int, int, int, int)",
      "K1/K1' conv3x3 (conv3x3.cu)"),

@@ -21,6 +21,7 @@ from councilx_torch.ops.conv3x3 import (conv3x3_dgrad,
                                         conv3x3_valid, conv3x3_valid_reference,
                                         conv3x3_wgrad, conv3x3_wgrad_reference,
                                         hwio_weight)
+from councilx_torch.ops import instance_norm as norm_ops
 from councilx_torch.ops.instance_norm import (
     instance_norm, instance_norm_backward, instance_norm_backward_reference,
     instance_norm_forward_reference, instance_norm_reference)
@@ -66,9 +67,19 @@ def test_conv3x3_kernel_matches_plain(cuda, dtype, b, h, w, c, o):
     assert (got - want).abs().max().item() <= tol
 
 
+# the forward's shapes: the resblock site; batch 1 at 256x256 (one group
+# over many chunks); bucket 64 at the resblocks (more groups than the card
+# holds at once: one chunk per group, no grid barrier); the 128x128 site
+# (chunks larger than their stash); a small one; too few rows to split;
+# ragged C split over HW: scalar loads in both dtypes (6), a partial last
+# group of 16-byte vectors (200)
+NORM_FWD_SHAPES = [(8, 64, 64, 256), (1, 256, 256, 64), (64, 64, 64, 256),
+                   (8, 128, 128, 128), (2, 32, 32, 64), (2, 5, 7, 24),
+                   (2, 32, 32, 6), (1, 64, 64, 200)]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", [(8, 64, 64, 256), (2, 32, 32, 64),
-                                   (2, 5, 7, 24)])
+@pytest.mark.parametrize("shape", NORM_FWD_SHAPES)
 @pytest.mark.parametrize("affine", [False, True])
 def test_instance_norm_kernel_matches_plain(cuda, dtype, shape, affine):
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -84,6 +95,65 @@ def test_instance_norm_kernel_matches_plain(cuda, dtype, shape, affine):
     tol = (2 ** -6 if dtype == torch.bfloat16 else 1e-5) * \
         want.abs().max().item()
     assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", NORM_FWD_SHAPES)
+def test_instance_norm_statistics_match_plain(cuda, dtype, shape):
+    """The f32 mean and rstd that the backward reads, stored by chunk 0 of
+    each group, in every mode of the forward's grid."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = (torch.randn(*shape, device=cuda, generator=g) * 3 + 1).to(dtype)
+    _, mean, rstd = norm_ops._forward(x, None, None, 1e-5)
+    _, want_mean, want_rstd = instance_norm_forward_reference(x)
+    # f32 sums over HW of the same inputs, in another order
+    _close(mean, want_mean, 1e-5)
+    _close(rstd, want_rstd, 1e-5)
+
+
+def test_instance_norm_forward_shapes_pick_each_mode(cuda):
+    """On this card, NORM_FWD_SHAPES reach every mode of the forward's
+    grid: many chunks of one group, one chunk per group (plain launch),
+    and chunks larger than their stash."""
+    stash_bytes, cap = norm_ops._norm_fwd_plan(cuda, 1, 8, False)
+
+    def grid(b, h, w, c):
+        return norm_ops._norm_fwd_grid(b, h * w, c, 8, 2, stash_bytes, cap)
+
+    assert grid(1, 256, 256, 64)[0] >= 64
+    assert grid(64, 64, 64, 256)[0] == 1
+    splits, rows, stash = grid(8, 128, 128, 128)
+    assert splits > 1 and stash * 32 < rows
+
+
+@pytest.mark.parametrize("affine", [False, True])
+def test_instance_norm_statistics_far_from_zero_mean(cuda, affine):
+    """f32 x * 3 + 64: the mean, then the variance of the centred values
+    (E[x^2] - E[x]^2 in f32 would miss rstd by ~1e-3 here)."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn(2, 64, 64, 256, device=cuda, generator=g) * 3 + 64
+    gm = (torch.randn(2, 256, device=cuda, generator=g) if affine
+          else None)
+    got = norm_ops._forward(x, gm, gm, 1e-5)
+    want = instance_norm_forward_reference(x, gm, gm)
+    # f32 sums over HW in another order
+    for a, b in zip(got, want):
+        _close(a, b, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(8, 64, 64, 256), (1, 256, 256, 64)])
+@pytest.mark.parametrize("affine", [False, True])
+def test_instance_norm_forward_is_deterministic(cuda, dtype, shape, affine):
+    """Split over HW, the chunk statistics are merged in a fixed order: two
+    calls give bit-equal y, mean and rstd."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    x = (torch.randn(*shape, device=cuda, generator=g) * 3 + 1).to(dtype)
+    gm = (torch.randn(shape[0], shape[3], device=cuda, generator=g)
+          if affine else None)
+    a = norm_ops._forward(x, gm, gm, 1e-5)
+    b = norm_ops._forward(x, gm, gm, 1e-5)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
 
 
 def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
@@ -287,6 +357,20 @@ def test_instance_norm_backward_is_one_kernel(cuda, affine):
         lambda: instance_norm_backward(dy, x, mean, rstd, gm))
     assert (len(kernels) == 1
             and "instance_norm_bwd_kernel" in kernels[0]), kernels
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 32, 128), (128, 8, 8, 256)])
+@pytest.mark.parametrize("affine", [False, True])
+def test_instance_norm_forward_is_one_kernel(cuda, shape, affine):
+    """One device kernel per call in both modes: the split over HW (first
+    shape) and one chunk per group (second: 512 groups)."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    x = torch.randn(*shape, device=cuda, generator=g).bfloat16()
+    gm = (torch.randn(shape[0], shape[3], device=cuda, generator=g)
+          if affine else None)
+    kernels = _device_kernels(lambda: instance_norm(x, gm, gm))
+    assert (len(kernels) == 1
+            and "instance_norm_fwd_kernel" in kernels[0]), kernels
 
 
 def test_conv3x3_wgrad_launches_from_a_fresh_thread(cuda):

@@ -1,17 +1,23 @@
 """The launch arithmetic of councilx_torch's split kernels, on the CPU.
 
 The wgrad kernel (csrc/conv3x3_wgrad.cu) splits its B*H*W reduction into
-whole 64-pixel K' steps, and the norm backward (csrc/instance_norm_bwd.cu)
-splits HW into whole iterations of its 256 threads under a cooperative
-launch that must fit on the card. Both splits are pure Python in the
-wrappers, so they are held here against what the kernels assume: every
-pixel (row) in exactly one non-empty split, the split count in its stated
-range. Also: chip_smoke.py builds every CUDA source of the package.
+whole 64-pixel K' steps, and the norm kernels (csrc/instance_norm_fwd.cu,
+csrc/instance_norm_bwd.cu) split HW into whole iterations of their 256
+threads under a cooperative launch that must fit on the card. The splits
+are pure Python in the wrappers, so they are held here against what the
+kernels assume: every pixel (row) in exactly one non-empty split, the
+split count in its stated range, the forward's stash within its chunk and
+its shared-memory budget. The forward kernel's fixed-order merge of chunk
+statistics is held here in numpy against the plain version. Also:
+chip_smoke.py builds every CUDA source of the package, and nothing of the
+port imports Triton.
 """
 
 import glob
 import os
+import re
 
+import numpy as np
 import pytest
 import torch
 
@@ -80,10 +86,10 @@ def test_norm_backward_grid_fits_the_cooperative_launch(b, hw, c, vec,
                                                         max_blocks):
     splits, rows = norm_ops._norm_bwd_grid(b, hw, c, vec, max_blocks)
     # a chunk is whole iterations of 256 threads, 64 / vec per pixel row
-    per_iter = norm_ops._BWD_THREADS // (norm_ops._BWD_CHANNELS // vec)
+    per_iter = norm_ops._NORM_THREADS // (norm_ops._NORM_CHANNELS // vec)
     assert rows % per_iter == 0
     _covers_once(splits, rows, hw)
-    groups = b * -(-c // norm_ops._BWD_CHANNELS)
+    groups = b * -(-c // norm_ops._NORM_CHANNELS)
     assert 1 <= splits and groups * splits <= max_blocks
 
 
@@ -101,6 +107,140 @@ def test_norm_backward_grid_raises_when_the_groups_do_not_fit():
         norm_ops._norm_bwd_grid(64, 16, 2048, 8, 1000)
 
 
+# the forward also runs at serving's bucket 64 (more groups than the card
+# holds at once: one split, the plain launch) and bucket 1 (one group at
+# the 256x256 site); and HW of 17 and 32.8 iterations (the least chunk)
+NORM_FWD_CASES = NORM_CASES + [(64, 64 * 64, 256, 8), (1, 256 * 256, 64, 8),
+                               (1, 17 * 32, 64, 8), (1, 33 * 32 - 5, 64, 8)]
+# (stash bytes, co-resident blocks): a stash sized for one block per SM on
+# an H100, and for two as councilx_instance_norm_fwd_plan gives it there;
+# no stash; one block
+FWD_PLANS = [(225280, 132), (108544, 264), (0, 132), (4096, 1)]
+
+
+def _esize(vec: int) -> int:
+    """bf16 where a 16-byte vector holds 8, f32 where it holds 4; scalar
+    loads in bf16."""
+    return {8: 2, 4: 4, 1: 2}[vec]
+
+
+@pytest.mark.parametrize("b,hw,c,vec", NORM_FWD_CASES)
+@pytest.mark.parametrize("stash_bytes,capacity", FWD_PLANS)
+def test_norm_forward_grid_fits_the_card_and_the_stash(b, hw, c, vec,
+                                                       stash_bytes,
+                                                       capacity):
+    esize = _esize(vec)
+    splits, rows, stash = norm_ops._norm_fwd_grid(b, hw, c, vec, esize,
+                                                  stash_bytes, capacity)
+    per_iter = norm_ops._NORM_THREADS // (norm_ops._NORM_CHANNELS // vec)
+    assert rows % per_iter == 0
+    _covers_once(splits, rows, hw)
+    # the stash: whole iterations of the chunk, within the budget
+    assert 0 <= stash * per_iter <= rows
+    assert stash * norm_ops._NORM_THREADS * vec * esize <= stash_bytes
+    groups = b * -(-c // norm_ops._NORM_CHANNELS)
+    if groups >= capacity:
+        assert splits == 1          # the plain launch, of any size
+    else:
+        assert 1 <= splits and groups * splits <= capacity
+    # no chunk split off shorter than the least the kernel is given
+    if splits > 1:
+        assert rows >= norm_ops._FWD_MIN_ITERS * per_iter
+
+
+def test_norm_forward_grid_at_the_path_shapes():
+    # one block per SM, 55 iterations of 32 bf16 rows (220 KB) stashed:
+    # (8, 64, 64, 256) is 32 groups of 4 chunks of 1024 rows, all kept
+    assert norm_ops._norm_fwd_grid(8, 4096, 256, 8, 2, 225280, 132) == (
+        4, 1024, 32)
+    # two per SM: 8 chunks of 512 rows, all kept in 64 of the 106 KB
+    assert norm_ops._norm_fwd_grid(8, 4096, 256, 8, 2, 108544, 264) == (
+        8, 512, 16)
+    # (8, 256, 256, 64): 8 groups of 16 chunks; 1760 of 4096 rows kept
+    assert norm_ops._norm_fwd_grid(8, 65536, 64, 8, 2, 225280, 132) == (
+        16, 4096, 55)
+    # batch 1 at 256x256: one group over 128 blocks, every row kept; at two
+    # blocks per SM no more, for chunks of at least 16 iterations
+    assert norm_ops._norm_fwd_grid(1, 65536, 64, 8, 2, 225280, 132) == (
+        128, 512, 16)
+    assert norm_ops._norm_fwd_grid(1, 65536, 64, 8, 2, 108544, 264) == (
+        128, 512, 16)
+    # bucket 64 at the resblocks: 256 groups, one block each, plain launch
+    assert norm_ops._norm_fwd_grid(64, 4096, 256, 8, 2, 225280, 132) == (
+        1, 4096, 55)
+
+
+@pytest.mark.parametrize("b", [1, 2, 8, 33, 64, 99, 100, 128])
+def test_norm_forward_grid_takes_any_batch(b):
+    """Unlike the backward's, the forward's grid never raises: where the
+    groups reach the card's capacity it takes one split per group."""
+    for hw, c in ((64 * 64, 256), (128 * 128, 128), (256 * 256, 64)):
+        for stash_bytes, capacity in FWD_PLANS[:2]:
+            splits, rows, _ = norm_ops._norm_fwd_grid(b, hw, c, 8, 2,
+                                                      stash_bytes, capacity)
+            _covers_once(splits, rows, hw)
+            if b * -(-c // 64) >= capacity:
+                assert splits == 1
+
+
+def _chan(parts):
+    """Chunk moments (count, mean (C,), M2 (C,)) combined in f32 with
+    Chan's formula, in the order given."""
+    n = mean = m2 = np.float32(0)
+    for nb, mb, m2b in parts:
+        if nb == 0:
+            continue
+        tot = np.float32(n + nb)
+        d = mb - mean
+        w = np.float32(nb) / tot
+        mean = mean + d * w
+        m2 = m2 + (m2b + d * d * n * w)
+        n = tot
+    return n, mean, m2
+
+
+def _kernel_merge(parts):
+    """The forward kernel's merge of its S chunk partials: four runs of
+    ceil(S / 4) in order, then the four runs in order."""
+    per = -(-len(parts) // 4)
+    return _chan([_chan(parts[k * per:(k + 1) * per]) for k in range(4)])
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("offset", [1.0, 64.0])
+def test_norm_forward_chan_merge_matches_two_pass_statistics(seed, offset):
+    """Chunk statistics (two-pass f32 sums within each chunk) merged in the
+    kernel's fixed order over random chunk splits of HW give the plain
+    version's two-pass f32 mean and rstd, also far from zero mean (offset
+    64), where E[x^2] - E[x]^2 in f32 would not."""
+    rng = np.random.default_rng(seed)
+    b, hw, c, eps = 2, 4096, 64, 1e-5
+    x = (rng.standard_normal((b, hw, c)) * 3 + offset).astype(np.float32)
+    ref_mean, ref_rstd = (t.numpy() for t in
+                          norm_ops.instance_norm_forward_reference(
+                              torch.from_numpy(x).view(b, 64, 64, c))[1:])
+    for i in range(b):
+        cuts = np.sort(rng.choice(np.arange(1, hw), rng.integers(0, 130),
+                                  replace=False))
+        parts = []
+        for chunk in np.split(x[i], cuts):
+            # (C, rows) contiguous: numpy sums each row pairwise in f32
+            ct = np.ascontiguousarray(chunk.T)
+            m = ct.mean(axis=1, dtype=np.float32)
+            parts.append((np.float32(ct.shape[1]), m,
+                          ((ct - m[:, None]) ** 2).sum(axis=1,
+                                                       dtype=np.float32)))
+        n, mean, m2 = _kernel_merge(parts)
+        assert n == hw
+        rstd = (1 / np.sqrt(m2 / n + np.float32(eps))).astype(np.float32)
+        # f32 sums of 4096 values in another order (E[x^2] - E[x]^2 misses
+        # rstd by ~1e-3 at offset 64)
+        np.testing.assert_allclose(mean, ref_mean[i], rtol=0,
+                                   atol=1e-6 * np.abs(ref_mean[i]).max())
+        np.testing.assert_allclose(rstd, ref_rstd[i], rtol=0,
+                                   atol=1e-6 * np.abs(ref_rstd[i]).max())
+
+
 @pytest.mark.parametrize("dtype,c,want", [(torch.bfloat16, 256, 8),
                                           (torch.bfloat16, 24, 8),
                                           (torch.bfloat16, 20, 1),
@@ -108,10 +248,10 @@ def test_norm_backward_grid_raises_when_the_groups_do_not_fit():
                                           (torch.float32, 6, 1)])
 def test_norm_backward_vector_width(dtype, c, want):
     t = torch.zeros(2, 3, 5, c, dtype=dtype)
-    assert norm_ops._norm_bwd_vec(t, t, t) == want
+    assert norm_ops._norm_vec(t, t, t) == want
     # an operand off the 16-byte grid takes scalar loads
     off = torch.zeros(2 * 3 * 5 * c + 1, dtype=dtype)[1:].view(2, 3, 5, c)
-    assert norm_ops._norm_bwd_vec(t, off, t) == 1
+    assert norm_ops._norm_vec(t, off, t) == 1
 
 
 def test_chip_smoke_builds_every_cuda_source():
@@ -119,4 +259,18 @@ def test_chip_smoke_builds_every_cuda_source():
                      for p in glob.glob(os.path.join(_build.CSRC_DIR,
                                                      "*.cu")))
     assert sorted(chip_smoke.CUDA_SOURCES) == sources
-    assert "instance_norm_bwd" in sources
+    assert {"instance_norm_fwd", "instance_norm_bwd"} <= set(sources)
+
+
+def test_nothing_of_the_port_imports_triton():
+    """Every kernel of the port is CUDA C++: no module of councilx_torch,
+    and not chip_smoke.py or profile_port.py, imports Triton."""
+    root = os.path.dirname(_build.CSRC_DIR)
+    paths = glob.glob(os.path.join(root, "**", "*.py"), recursive=True)
+    repo = os.path.dirname(root)
+    paths += [os.path.join(repo, f) for f in ("chip_smoke.py",
+                                              "profile_port.py")]
+    pattern = re.compile(r"^\s*(import|from)\s+triton\b", re.M)
+    for path in paths:
+        with open(path) as f:
+            assert not pattern.search(f.read()), path

@@ -1,4 +1,5 @@
-"""councilx_torch and chip_smoke.py import with JAX and councilx blocked."""
+"""councilx_torch, chip_smoke.py and time_norm_forward.py import with JAX
+and councilx blocked."""
 
 import os
 import subprocess
@@ -27,7 +28,8 @@ _CHILD = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     import chip_smoke
-    assert callable(chip_smoke.main)
+    import time_norm_forward
+    assert callable(chip_smoke.main) and callable(time_norm_forward.main)
     leaked = [m for m in sys.modules
               if m.split(".")[0] in BLOCKED or m.split(".")[0] == "councilx"]
     assert not leaked, leaked
