@@ -36,7 +36,22 @@ Phases, in order; any failure raises and exits non-zero:
    forward and backward kernels checked against each other;
 7. accuracy of the training path: a reduced config's first two steps on
    the card (f32 parity mode, then bf16) against the port on the CPU from
-   the same weights, batch and z.
+   the same weights, batch and z;
+8. train-cli: the user's path at the same width: seeded JPEG folders
+   (trainA/B, testA/B, 32 images each, ~300x280) under ``build/``,
+   ``python -m councilx_torch.cli.train``'s ``main`` for 6 steps (log
+   every 2, sample sheets and async snapshots every 3), then ``--resume``
+   for 2 more: resumed at 6, ended at 8, finite metrics logged at steps 2,
+   4, 6 and 8, the launch invariants over the loop's steps, every kernel
+   launched; then ``cli.translate --member all`` on testA and one
+   ``cli.gui`` render from the step-8 snapshot. Prints the loop's img/s
+   beside phase 6's, the snapshot's size and the seconds its save held the
+   loop, and which decode path ran.
+
+Phase 3 also holds two inputs the kernels once refused: the norm backward
+at batch 128 (more groups than one cooperative launch holds: its plain
+launch) and the conv, dgrad and wgrad at C = 12, O = 20 (channels padded to
+multiples of 8 around the same kernels).
 
 The line before the last is one JSON object describing every kernel; the
 last is ``{"ok": true, "device": {...}}``.
@@ -135,6 +150,16 @@ NORM_SHAPES = ((BATCH, 64, 64, 256), (BATCH, 128, 128, 128),
 # the resblocks' norm site at serving's largest bucket (cli/serve.py
 # --max_batch): one chunk per group, the norm forward's plain launch
 NORM_BUCKET64 = (64, 64, 64, 256)
+# inputs the kernels once refused: the norm backward at batch 128 (512
+# groups, more than one cooperative launch holds: its plain launch), and
+# the conv at channel counts that are not multiples of 8 (padded)
+NORM_BWD_BATCH128 = (128, 64, 64, 256)
+CONV_RAGGED = (BATCH, 64, 64, 12, 20)
+# phase 8: the train CLI's run (steps, then resumed steps) and cadences
+CLI_STEPS, CLI_RESUME_STEPS = 6, 2
+CLI_CADENCE = {"log_iter": 2, "image_save_iter": 3, "image_display_iter": 3,
+               "snapshot_save_iter": 3}
+CLI_IMAGES = 32
 
 # the card's peak rates (NVIDIA H100 SXM data sheet, dense, at the full
 # 700 W): bf16 on the tensor cores, f32 on the FMA units, device memory
@@ -424,6 +449,7 @@ def phase_kernels(g: torch.Generator, card_str: str) -> dict:
                     lambda out=out, leaves=leaves, dyl=dyl:
                         torch.autograd.grad(out, leaves, dyl,
                                             retain_graph=True)))
+    cases += repaired_cases(g)
     for name, kind, dt, shape, work, kern, plain, library in cases:
         got = kern()
         torch.cuda.synchronize()
@@ -469,6 +495,68 @@ def phase_kernels(g: torch.Generator, card_str: str) -> dict:
             "library_ms": library_ms, "bound_ms": bms, "bound_by": bound_by,
             "bound_share": bms / ms}
     return results
+
+
+def repaired_cases(g: torch.Generator) -> list:
+    """Phase 3's cases for two inputs the kernels once refused, in bf16:
+    the norm backward at NORM_BWD_BATCH128 (IN and AdaIN), and the conv,
+    its dgrad and its wgrad at CONV_RAGGED's C = 12, O = 20. Same
+    tolerances, library calls and bound as the main shapes."""
+    dt = torch.bfloat16
+    cases = []
+    b, h, w, c, o = CONV_RAGGED
+    xp = torch.randn(b, h + 2, w + 2, c, device="cuda", generator=g).to(dt)
+    k = hwio_weight(torch.randn(o, c, 3, 3, device="cuda", generator=g)
+                    / (9 * c) ** 0.5, dt)
+    gy = torch.randn(b, h, w, o, device="cuda", generator=g).to(dt)
+    xn, gn = xp.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2)
+    wn = k.permute(3, 2, 0, 1)
+
+    def conv_bwd(mask):
+        return lambda: torch.ops.aten.convolution_backward(
+            gn, xn, wn, None, [1, 1], [0, 0], [1, 1], False, [0, 0], 1, mask)
+
+    cases.append(("conv3x3", "conv", dt, tuple(xp.shape), CONV_RAGGED,
+                  lambda: conv3x3_valid(xp, k),
+                  lambda: conv3x3_valid_reference(xp, k),
+                  lambda: F.conv2d(xn, wn)))
+    cases.append(("conv3x3_dgrad", "conv", dt, tuple(gy.shape), CONV_RAGGED,
+                  lambda: conv3x3_dgrad(gy, k),
+                  lambda: conv3x3_dgrad_reference(gy, k),
+                  conv_bwd([True, False, False])))
+    cases.append(("conv3x3_wgrad", "wgrad", dt, tuple(xp.shape),
+                  CONV_RAGGED, lambda: conv3x3_wgrad(xp, gy, dt),
+                  lambda: conv3x3_wgrad_reference(xp, gy),
+                  conv_bwd([False, True, False])))
+    shape = NORM_BWD_BATCH128
+    x = (torch.randn(*shape, device="cuda", generator=g) * 3 + 1).to(dt)
+    dy = torch.randn(*shape, device="cuda", generator=g).to(dt)
+    gm = torch.randn(shape[0], shape[3], device="cuda", generator=g)
+    for gmm in (None, gm):
+        _, mean, rstd = instance_norm_forward_reference(x, gmm, gmm)
+        leaves = [x.detach().clone().requires_grad_()]
+        dyl = dy.permute(0, 3, 1, 2)
+        if gmm is None:
+            out = F.instance_norm(leaves[0].permute(0, 3, 1, 2), eps=1e-5)
+        else:
+            leaves += [gmm.clone().requires_grad_(),
+                       gmm.clone().requires_grad_()]
+            bb, hh, ww, cc = shape
+            out = F.instance_norm(
+                leaves[0].permute(0, 3, 1, 2).reshape(1, bb * cc, hh, ww),
+                weight=leaves[1].flatten(), bias=leaves[2].flatten(),
+                eps=1e-5)
+            dyl = dyl.reshape(1, bb * cc, hh, ww)
+        cases.append((
+            "adain_bwd" if gmm is not None else "instance_norm_bwd",
+            "norm_bwd", dt, shape, shape,
+            lambda m=mean, r=rstd, gmm=gmm:
+                instance_norm_backward(dy, x, m, r, gmm),
+            lambda m=mean, r=rstd, gmm=gmm:
+                instance_norm_backward_reference(dy, x, m, r, gmm),
+            lambda out=out, leaves=leaves, dyl=dyl:
+                torch.autograd.grad(out, leaves, dyl, retain_graph=True)))
+    return cases
 
 
 COUNTERS = ((conv3x3_valid, ("launches", "grad_launches")),
@@ -727,7 +815,7 @@ def phase_train(card_str: str) -> dict:
     log(f"[train] launches over the timed steps {json.dumps(got)}")
     if got != want:
         raise AssertionError(f"train launches {got} != {want}")
-    return got
+    return got, BATCH * TIMED_STEPS / seconds
 
 
 def phase_train_accuracy(card_str: str):
@@ -784,6 +872,207 @@ def phase_train_accuracy(card_str: str):
                         f"{want[k]}")
 
 
+def write_folders(root: str) -> None:
+    """trainA/B, testA/B under root: CLI_IMAGES seeded JPEGs each, ~300x280
+    (heights 296-303, widths 276-283: the loader's resize to 270 and the
+    center crop always work)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(8)
+    for split in ("trainA", "trainB", "testA", "testB"):
+        os.makedirs(os.path.join(root, split))
+        for i in range(CLI_IMAGES):
+            h, w = 296 + i % 8, 276 + (3 * i) % 8
+            # smooth noise (JPEG-like content) plus fine grain
+            base = rng.integers(0, 256, (h // 8 + 1, w // 8 + 1, 3))
+            img = np.kron(base, np.ones((8, 8, 1)))[:h, :w]
+            img = np.clip(img + rng.normal(0, 12, img.shape), 0, 255)
+            Image.fromarray(img.astype(np.uint8)).save(
+                os.path.join(root, split, f"{i:04d}.jpg"), quality=90)
+
+
+def _metric_steps(path: str) -> dict:
+    with open(path) as f:
+        return {rec["step"]: rec for rec in map(json.loads, f)}
+
+
+def decode_seconds(cfg, steps: int):
+    """(seconds, native): the two train loaders, started together with
+    empty queues, hand over ``steps`` batches each, every one decoded
+    inside the window. The train loop's prefetch queues fill while its
+    first step warms up and hide the decode over a few steps; this is the
+    rate the loaders sustain once the queues have drained (an upper bound
+    there: no step competes for the host)."""
+    from councilx_torch.data.loader import get_all_data_loaders
+
+    train_a, train_b = get_all_data_loaders(cfg)[:2]
+    t0 = time.perf_counter()
+    it_a, it_b = iter(train_a), iter(train_b)
+    try:
+        for _ in range(steps):
+            next(it_a)
+            next(it_b)
+    finally:
+        it_a.close()
+        it_b.close()
+    return time.perf_counter() - t0, train_a.native and train_b.native
+
+
+def phase_train_cli(card_str: str, tmp: str, step_ips: float) -> dict:
+    """Phase 8: the train CLI at the headline config from image folders,
+    resumed, then translate and the GUI from its snapshot. Returns the
+    kernels' launch counts over the loop's steps."""
+    import yaml
+
+    from councilx_torch.cli import gui
+    from councilx_torch.cli import train as train_cli
+    from councilx_torch.cli import translate as translate_cli
+
+    data = os.path.join(tmp, "data")
+    t0 = time.perf_counter()
+    write_folders(data)
+    cfg_path = os.path.join(tmp, "headline.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump({**HEADLINE, **CLI_CADENCE, "data_root": data}, f)
+    log(f"[train-cli] {4 * CLI_IMAGES} JPEGs written in "
+        f"{time.perf_counter() - t0:.6g} s")
+    from councilx_torch.config import load_config
+
+    cfg = load_config(cfg_path)
+    # two epochs of each train folder
+    dsteps = 2 * CLI_IMAGES // cfg.batch_size
+    dsec, dnative = decode_seconds(cfg, dsteps)
+    log(f"[train-cli] decode alone: both train loaders ("
+        f"{'native C++ (cxloader)' if dnative else 'PIL threads'}, "
+        f"{cfg.data.num_workers} threads each, batch {cfg.batch_size}) from "
+        f"empty queues, {dsteps} batches each in {dsec:.6g} s: "
+        f"{1e3 * dsec / dsteps:.6g} ms per step, "
+        f"{dsteps * cfg.batch_size / dsec:.6g} img/s, beside phase 6's "
+        f"train_step {1e3 * cfg.batch_size / step_ips:.6g} ms per step "
+        f"({step_ips:.6g} img/s) [{card_str}]")
+    out = os.path.join(tmp, "runs")
+    args = ["--config", cfg_path, "--output_path", out]
+    reset_counts()
+    t0 = time.perf_counter()
+    first = train_cli.main(args + ["--max_steps", str(CLI_STEPS)])
+    resumed = train_cli.main(args + ["--resume", "--max_steps",
+                                     str(CLI_RESUME_STEPS)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = _snapshot()
+    end = CLI_STEPS + CLI_RESUME_STEPS
+    if (first["step"], resumed["start_step"], resumed["step"]) != (
+            CLI_STEPS, CLI_STEPS, end):
+        raise AssertionError(f"train CLI steps: {first} then {resumed}")
+    run = os.path.join(out, "headline")
+    recs = _metric_steps(os.path.join(run, "metrics.jsonl"))
+    want_steps = list(range(CLI_CADENCE["log_iter"], end + 1,
+                            CLI_CADENCE["log_iter"]))
+    if sorted(recs) != want_steps:
+        raise AssertionError(f"metrics.jsonl steps {sorted(recs)} != "
+                             f"{want_steps}")
+    for step, rec in recs.items():
+        vals = [v for k, v in rec.items() if k not in ("step", "time")]
+        if not np.isfinite(vals).all():
+            raise AssertionError(f"step {step}: non-finite metrics {rec}")
+    log(f"[train-cli] {CLI_STEPS} steps, then --resume from "
+        f"{resumed['start_step']} to {resumed['step']}, in {seconds:.6g} s "
+        f"(two trainer inits and the first steps' setup included); "
+        f"metrics.jsonl finite at steps {sorted(recs)}")
+    log(f"[train-cli] loop {first['images_per_sec']:.6g} img/s over steps "
+        f"{CLI_STEPS - CLI_CADENCE['log_iter'] + 1}-{CLI_STEPS} (step 3's "
+        f"snapshot writing behind them) and {resumed['images_per_sec']:.6g} "
+        f"img/s over the resumed steps {CLI_STEPS + 1}-{end} (no write), "
+        f"loader, augment and step, beside phase 6's train_step "
+        f"{step_ips:.6g} img/s on device-resident inputs; the loop waited "
+        f"{first['stage_wait_seconds']:.6g} s + "
+        f"{resumed['stage_wait_seconds']:.6g} s in all for staged batches "
+        f"[{card_str}]")
+    log(f"[train-cli] snapshot {resumed['snapshot_bytes']} bytes "
+        f"({resumed['snapshot_bytes'] / 2 ** 30:.6g} GiB: 12 networks' "
+        f"parameters and two Adam moments); the async saves' "
+        f"device-to-host copies held the loop "
+        f"{' s, '.join(f'{t:.6g}' for t in first['snapshot_copy_seconds'])}"
+        f" s, their waits for the previous write "
+        f"{first['snapshot_write_wait_seconds']:.6g} s in all; the final "
+        f"synchronous save (copy and write) "
+        f"{first['final_save_seconds']:.6g} s (steps 1-{CLI_STEPS}: none, "
+        f"step {CLI_STEPS} was saved) and "
+        f"{resumed['final_save_seconds']:.6g} s (step {end}) [{card_str}]")
+    log(f"[train-cli] decode path: "
+        f"{'native C++ (cxloader)' if first['native'] else 'PIL threads'}")
+
+    # launch invariants over the loop's steps: every step's kernel sites
+    # ran under autograd with their backward; the rest are the sample
+    # sheets' member forwards (no grad)
+    steps = end * N_MEMBERS
+    conv = TRAIN_CONV_PER_MEMBER * steps
+    norm = TRAIN_NORM_PER_MEMBER * steps
+    adain = TRAIN_ADAIN_PER_MEMBER * steps
+    # per image_save_iter a test and a train sheet, per image_display_iter
+    # the "current" one: each sheet one forward of every member
+    sheets = sum(2 * (s % CLI_CADENCE["image_save_iter"] == 0)
+                 + (s % CLI_CADENCE["image_display_iter"] == 0)
+                 for s in range(1, end + 1))
+    fwd = sheets * N_MEMBERS
+    want = {
+        "conv3x3_valid.launches": conv + CONV_PER_FWD * fwd,
+        "conv3x3_valid.grad_launches": conv,
+        "conv3x3_dgrad.launches": conv, "conv3x3_wgrad.launches": conv,
+        "instance_norm.launches": norm + NORM_PER_FWD * fwd,
+        "instance_norm.grad_launches": norm,
+        "instance_norm.affine_launches": adain + ADAIN_PER_FWD * fwd,
+        "instance_norm.affine_grad_launches": adain,
+        "instance_norm_backward.launches": norm,
+        "instance_norm_backward.affine_launches": adain}
+    log(f"[train-cli] launches over the loop's {end} steps and "
+        f"{fwd} sample-sheet member forwards {json.dumps(got)}")
+    if got != want:
+        raise AssertionError(f"train-cli launches {got} != {want}")
+
+    snap = os.path.join(run, "checkpoints", f"step_{end:08d}")
+    trans_out = os.path.join(tmp, "translated")
+    t0 = time.perf_counter()
+    n = translate_cli.main(["--config", cfg_path, "--checkpoint", snap,
+                            "--input_folder", os.path.join(data, "testA"),
+                            "--output_folder", trans_out, "--member", "all"])
+    files = sorted(os.listdir(trans_out))
+    want_files = sorted(f"{i:04d}_m{m}.jpg" for i in range(CLI_IMAGES)
+                        for m in range(N_MEMBERS))
+    if n != CLI_IMAGES or files != want_files:
+        raise AssertionError(f"translate wrote {len(files)} files for {n} "
+                             f"images")
+    log(f"[train-cli] translate --member all: {len(files)} files from "
+        f"{snap} in {time.perf_counter() - t0:.6g} s")
+
+    srv = gui.make_server(cfg, snap,
+                          os.path.join(data, "testA"), port=0,
+                          host="127.0.0.1")
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        import http.client
+        conn = http.client.HTTPConnection("127.0.0.1", srv.server_address[1],
+                                          timeout=120)
+        conn.request("GET", "/translate?image=0000.jpg&member=all&seed=3")
+        resp = conn.getresponse()
+        panels = json.loads(resp.read())["panels"]
+        conn.request("GET", panels[1]["url"])
+        img = conn.getresponse().read()
+        conn.close()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=60)
+    # input, 4 members, 4 masks
+    if resp.status != 200 or len(panels) != 1 + 2 * N_MEMBERS or \
+            not img.startswith(b"\x89PNG"):
+        raise AssertionError(f"gui render: {resp.status} {panels}")
+    log(f"[train-cli] gui: one render of all {N_MEMBERS} members from "
+        f"{snap}: {[p['title'] for p in panels]}")
+    return got
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -806,8 +1095,10 @@ def main():
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
         ckpt, _ = phase_serve(card_str, tmp)
         phase_accuracy(ckpt, card_str)
-    launches = phase_train(card_str)
+    launches, step_ips = phase_train(card_str)
     phase_train_accuracy(card_str)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        cli_launches = phase_train_cli(card_str, tmp, step_ips)
 
     norm_l = launches["instance_norm.launches"]
     adain_l = launches["instance_norm.affine_launches"]
@@ -845,6 +1136,20 @@ def main():
     for e in entries:
         if e[4] < 1:
             raise AssertionError(f"{e[0]} was not launched on the path")
+    cli_norm = cli_launches["instance_norm.launches"]
+    cli_adain = cli_launches["instance_norm.affine_launches"]
+    cli_bwd = cli_launches["instance_norm_backward.launches"]
+    cli_adain_bwd = cli_launches["instance_norm_backward.affine_launches"]
+    for name, n in (("conv3x3", cli_launches["conv3x3_valid.launches"]),
+                    ("conv3x3_dgrad", cli_launches["conv3x3_dgrad.launches"]),
+                    ("conv3x3_wgrad", cli_launches["conv3x3_wgrad.launches"]),
+                    ("instance_norm", cli_norm - cli_adain),
+                    ("adain", cli_adain),
+                    ("instance_norm_bwd", cli_bwd - cli_adain_bwd),
+                    ("adain_bwd", cli_adain_bwd)):
+        if n < 1:
+            raise AssertionError(f"{name} was not launched on the train "
+                                 f"CLI's path")
     log(card_str)
     log(json.dumps({"kernels": [
         {"name": n, "route": r, "source": s, "replaces": rep,

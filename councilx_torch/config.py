@@ -182,7 +182,9 @@ class DataConfig:
     new_size: int = 132            # resize shorter side before crop
     crop_image_height: int = 128
     crop_image_width: int = 128
-    # on-device augmentation (training data path; not ported yet)
+    # read by nothing, in the port as in the JAX package: the train loop
+    # always crops and flips on the device (data/ondevice.py); kept so
+    # configs load unchanged
     on_device_aug: bool = True
 
     @classmethod
@@ -208,7 +210,8 @@ class Config:
     # in-training FID cadence (0 = off, the default — and the reference
     # behavior): every eval_iter steps, translate a fixed test batch with
     # member 0 and log fid_<direction> vs the target test split
-    # (councilx/eval/hook.py). Needs eval_inception_weights.
+    # (councilx/eval/hook.py). Needs eval_inception_weights. Not ported
+    # yet: the port's train loop refuses eval_iter > 0.
     eval_iter: int = 0
     # InceptionV3 .npz (tools/convert_inception_pt.py); the literal
     # "random" permits random weights for smoke tests (numbers meaningless)
@@ -284,8 +287,12 @@ class Config:
     use_pallas_norm: bool = False
     # exact upsample+conv rewrite of the JAX package; no effect in the port
     fuse_upsample: bool = True
-    # --- training, data-parallel and memory settings (not ported yet) -----
+    # --- training, data-parallel and memory settings -------------------
+    # stage step k+1's batches in a worker thread while step k runs
+    # (train/loop.py)
     host_prefetch: bool = True
+    # multi-device training: the train loop refuses num_devices > 1,
+    # council_parallel > 1 and det_data_reduction (not ported yet)
     num_devices: int = 1
     council_parallel: int = 1
     det_data_reduction: bool = False

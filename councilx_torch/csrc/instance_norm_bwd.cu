@@ -1,5 +1,6 @@
 // Backward of instance norm with an optional per-(sample, channel) affine
-// (AdaIN), on NHWC input, for Hopper: one cooperative launch per call.
+// (AdaIN), on NHWC input, for Hopper: one launch per call, cooperative
+// where HW is split.
 //
 // Replaces councilx/ops/pallas_norm.py::_bwd_kernel and ::_bwd_affine_kernel
 // (pallas_calls at :158 and :166). For x, dy (B, HW, C) contiguous (NHWC
@@ -34,8 +35,13 @@
 //     then over the block's rows in a fixed order in shared memory) into f32
 //     partials (B, S, C, 2) in scratch.
 //   * One grid-wide barrier: cooperative_groups::this_grid().sync(), under
-//     cudaLaunchCooperativeKernel, which refuses a grid that does not fit
-//     (the wrapper raises; there is no fallback).
+//     cudaLaunchCooperativeKernel, which refuses a grid that does not fit.
+//   * Plain mode (S = 1), as the forward's: where the groups alone fill the
+//     card (B * C / 64 >= the co-resident blocks, e.g. B >= 99 at C = 256
+//     in bf16), one block per group sums its whole HW and goes straight on
+//     to pass 2 after a block barrier; no scratch, no grid barrier, a plain
+//     launch of any size. Its sums are the block's own, in the same fixed
+//     order, so it too is bit-deterministic.
 //   * Pass 2: every block of a group sums the group's S partials in the
 //     order s = 0..S-1, so every block (and every run) gets the same sums,
 //     then writes its chunk's dx; block s = 0 writes dgamma and dbeta. No
@@ -54,12 +60,13 @@ namespace {
 
 using namespace inorm;
 
-// Grid: B * cgroups * splits blocks; block (group, s) = (bid / splits,
-// bid % splits), group = (b, channel block). Chunk s covers rows
-// [s * rows_per_split, +rows_per_split) of HW, a multiple of the rows per
-// iteration. part: (B, splits, C, 2) f32 scratch. gamma, dgamma, dbeta
-// are read or written only if AFFINE.
-template <typename T, int VEC, bool AFFINE>
+// Grid: B * cgroups * splits blocks (splits = 1 in plain mode); block
+// (group, s) = (bid / splits, bid % splits), group = (b, channel block).
+// Chunk s covers rows [s * rows_per_split, +rows_per_split) of HW, a
+// multiple of the rows per iteration. part: (B, splits, C, 2) f32 scratch,
+// used only if COOP. gamma, dgamma, dbeta are read or written only if
+// AFFINE.
+template <typename T, int VEC, bool AFFINE, bool COOP>
 __global__ void __launch_bounds__(THREADS)
 instance_norm_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ x,
                          const float* __restrict__ mean,
@@ -74,8 +81,8 @@ instance_norm_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ x,
   __shared__ float red[RPI][CB][2];
   __shared__ float sums[CB][2];
 
-  const int s = blockIdx.x % splits;
-  const int grp = blockIdx.x / splits;
+  const int s = COOP ? blockIdx.x % splits : 0;
+  const int grp = COOP ? blockIdx.x / splits : blockIdx.x;
   const int b = grp / cgroups;
   const int c0 = (grp - b * cgroups) * CB;
   const int lc = threadIdx.x % TPR;       // this thread's VEC channels
@@ -122,25 +129,34 @@ instance_norm_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ x,
   if (k < 2) {
     float acc = 0.0f;
     for (int r = 0; r < RPI; ++r) acc += red[r][ch][k];
-    if (c0 + ch < C)
-      part[((static_cast<size_t>(b) * splits + s) * C + c0 + ch) * 2 + k] =
-          acc;
+    if constexpr (COOP) {
+      if (c0 + ch < C)
+        part[((static_cast<size_t>(b) * splits + s) * C + c0 + ch) * 2 +
+             k] = acc;
+    } else {
+      // plain mode: this block's chunk is the whole of HW
+      sums[ch][k] = acc;
+      if (AFFINE && c0 + ch < C)
+        (k == 0 ? dbeta : dgamma)[b * C + c0 + ch] = acc;
+    }
   }
 
-  cg::this_grid().sync();
+  if constexpr (COOP) {
+    cg::this_grid().sync();
 
-  // pass 2: the group's sums, in the order s = 0..splits-1
-  if (k < 2) {
-    float acc = 0.0f;
-    if (c0 + ch < C) {
+    // pass 2: the group's sums, in the order s = 0..splits-1
+    if (k < 2) {
+      float acc = 0.0f;
+      if (c0 + ch < C) {
 #pragma unroll 8
-      for (int j = 0; j < splits; ++j)
-        acc += part[((static_cast<size_t>(b) * splits + j) * C + c0 + ch) *
-                        2 + k];
+        for (int j = 0; j < splits; ++j)
+          acc += part[((static_cast<size_t>(b) * splits + j) * C + c0 +
+                       ch) * 2 + k];
+      }
+      sums[ch][k] = acc;
+      if (AFFINE && s == 0 && c0 + ch < C)
+        (k == 0 ? dbeta : dgamma)[b * C + c0 + ch] = acc;
     }
-    sums[ch][k] = acc;
-    if (AFFINE && s == 0 && c0 + ch < C)
-      (k == 0 ? dbeta : dgamma)[b * C + c0 + ch] = acc;
   }
   __syncthreads();
   if (!c_ok) return;
@@ -168,54 +184,71 @@ instance_norm_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ x,
   }
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, bool COOP>
 const void* pick_affine(int affine) {
-  return affine ? (const void*)instance_norm_bwd_kernel<T, VEC, true>
-                : (const void*)instance_norm_bwd_kernel<T, VEC, false>;
+  return affine ? (const void*)instance_norm_bwd_kernel<T, VEC, true, COOP>
+                : (const void*)instance_norm_bwd_kernel<T, VEC, false, COOP>;
 }
 
-// The kernel for (dtype, vec, affine): dtype 0 = float32, 1 = bfloat16;
-// vec 16 / sizeof(element) or 1. nullptr for anything else.
-const void* pick(int dtype, int vec, int affine) {
-  if (dtype == 1 && vec == 8) return pick_affine<__nv_bfloat16, 8>(affine);
-  if (dtype == 1 && vec == 1) return pick_affine<__nv_bfloat16, 1>(affine);
-  if (dtype == 0 && vec == 4) return pick_affine<float, 4>(affine);
-  if (dtype == 0 && vec == 1) return pick_affine<float, 1>(affine);
+template <typename T, int VEC>
+const void* pick_mode(int affine, int coop) {
+  return coop ? pick_affine<T, VEC, true>(affine)
+              : pick_affine<T, VEC, false>(affine);
+}
+
+// The kernel for (dtype, vec, affine, coop): dtype 0 = float32, 1 =
+// bfloat16; vec 16 / sizeof(element) or 1; coop: the cooperative (split)
+// mode, else the plain one. nullptr for anything else.
+const void* pick(int dtype, int vec, int affine, int coop) {
+  if (dtype == 1 && vec == 8)
+    return pick_mode<__nv_bfloat16, 8>(affine, coop);
+  if (dtype == 1 && vec == 1)
+    return pick_mode<__nv_bfloat16, 1>(affine, coop);
+  if (dtype == 0 && vec == 4) return pick_mode<float, 4>(affine, coop);
+  if (dtype == 0 && vec == 1) return pick_mode<float, 1>(affine, coop);
   return nullptr;
 }
 
 }  // namespace
 
-// How many blocks of the (dtype, vec, affine) kernel the current device
-// holds at once: its occupancy per SM x the SM count, into *blocks. 0 or a
-// CUDA error code.
+// How many blocks of the cooperative (dtype, vec, affine) kernel the
+// current device holds at once: its occupancy per SM x the SM count, into
+// *blocks. 0 or a CUDA error code.
 extern "C" int councilx_instance_norm_bwd_max_blocks(int dtype, int vec,
                                                      int affine,
                                                      int* blocks) {
-  const void* fn = pick(dtype, vec, affine);
+  const void* fn = pick(dtype, vec, affine, 1);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(co_resident_blocks(fn, 0, blocks));
 }
 
 // dy, x, dx (B, HW, C) of one dtype (0 = float32, 1 = bfloat16); mean,
 // rstd (B, C) f32; gamma (B, C) f32 or null (no affine), and then dgamma
-// and dbeta unused; part (B, splits, C, 2) f32. vec: 16 / element size
-// (C a multiple of it, every tensor 16-byte aligned) or 1. One cooperative
-// launch of B * ceil(C / 64) * splits blocks on `stream`; does not
-// synchronise; returns the launch's error code (0 on success).
+// and dbeta unused; part (B, splits, C, 2) f32 scratch when splits > 1.
+// vec: 16 / element size (C a multiple of it, every tensor 16-byte
+// aligned) or 1. splits > 1: one cooperative launch of B * ceil(C / 64) *
+// splits blocks; splits = 1: one plain launch of B * ceil(C / 64) blocks.
+// On `stream`; does not synchronise; returns the launch's error code (0 on
+// success).
 extern "C" int councilx_instance_norm_bwd(
     const void* dy, const void* x, const float* mean, const float* rstd,
     const float* gamma, void* dx, float* dgamma, float* dbeta, float* part,
     int B, int HW, int C, int dtype, int vec, int splits, int rows_per_split,
     void* stream) {
-  const void* fn = pick(dtype, vec, gamma != nullptr);
-  if (fn == nullptr || splits < 1 || rows_per_split < 1)
+  const int coop = splits > 1;
+  const void* fn = pick(dtype, vec, gamma != nullptr, coop);
+  if (fn == nullptr || splits < 1 || rows_per_split < 1 ||
+      (coop && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   int cgroups = (C + CB - 1) / CB;
   void* args[] = {(void*)&dy, (void*)&x, (void*)&mean, (void*)&rstd,
                   (void*)&gamma, &dx, &dgamma, &dbeta, &part, &HW, &C,
                   &cgroups, &splits, &rows_per_split};
   const dim3 grid(static_cast<unsigned>(B * cgroups * splits));
-  return static_cast<int>(cudaLaunchCooperativeKernel(
-      fn, grid, dim3(THREADS), args, 0, static_cast<cudaStream_t>(stream)));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (coop)
+    return static_cast<int>(cudaLaunchCooperativeKernel(
+        fn, grid, dim3(THREADS), args, 0, st));
+  return static_cast<int>(
+      cudaLaunchKernel(fn, grid, dim3(THREADS), args, 0, st));
 }

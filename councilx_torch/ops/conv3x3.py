@@ -17,6 +17,11 @@ Both conv calls take the kernel weight :func:`_kernel_weight` makes from
 k, a relayout copy unless k is laid out as :func:`hwio_weight` makes it,
 as the model's blocks do.
 
+The kernels' TMA loads need 16-byte rows, so C and O multiples of 8. For
+other channel counts (where the JAX op falls back to XLA) the wrappers
+zero-pad C and O up to the next multiple of 8, launch the same kernels and
+slice the result back: exact, because the zero channels add zero terms.
+
 Nothing falls back: a CUDA input a kernel does not take raises.
 """
 
@@ -99,6 +104,36 @@ def hwio_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return wk.contiguous().transpose(2, 3)
 
 
+def _up8(n: int) -> int:
+    """n rounded up to a multiple of 8: 16 bytes of bf16."""
+    return -(-n // 8) * 8
+
+
+def _pad_last(t: torch.Tensor, n: int) -> torch.Tensor:
+    """t with its last dimension zero-padded to n (t itself if it is n)."""
+    return t if t.shape[-1] == n else F.pad(t, (0, n - t.shape[-1]))
+
+
+def _pad_weight(wk: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """A (3, 3, R, S) kernel weight zero-padded to (3, 3, rows, cols)."""
+    if tuple(wk.shape[2:]) == (rows, cols):
+        return wk
+    return F.pad(wk, (0, cols - wk.shape[3], 0, rows - wk.shape[2]))
+
+
+def _check_channels(name: str, x: torch.Tensor, k_shape, x_axis: int):
+    """x is 4-D and its channels match k's dimension ``x_axis`` (2: the
+    forward's input channels; 3: the dgrad's cotangent, k's outputs), so
+    that padding both to a multiple of 8 cannot hide a mismatch."""
+    if x.dim() != 4 or len(k_shape) != 4 or tuple(k_shape[:2]) != (3, 3):
+        raise ValueError(f"{name}: want 4-D input and a (3, 3, C, O) "
+                         f"kernel, got {tuple(x.shape)} and "
+                         f"{tuple(k_shape)}")
+    if x.shape[-1] != k_shape[x_axis]:
+        raise ValueError(f"{name}: kernel {tuple(k_shape)} does not match "
+                         f"{x.shape[-1]} input channels")
+
+
 def _kernel_weight(k: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """(3, 3, C, O) HWIO -> the conv kernel's (3, 3, O, C) weight in dtype:
     per tap, one row of input channels per output channel. The forward
@@ -136,8 +171,8 @@ def _wgrad_lib() -> ctypes.CDLL:
 def _check_cuda(name: str, xp: torch.Tensor, k_shape, other: torch.Tensor,
                 pad: int = 0):
     """The kernels' gate: 4-D contiguous 16-byte aligned NHWC on one CUDA
-    device, a (3, 3, C, O) weight, C and O multiples of 8, a non-empty
-    output of xp zero-padded by ``pad``."""
+    device, a (3, 3, C, O) weight, C and O multiples of 8 (the wrappers pad
+    other counts), a non-empty output of xp zero-padded by ``pad``."""
     if xp.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {xp.device}")
     if xp.dim() != 4 or len(k_shape) != 4:
@@ -198,10 +233,17 @@ def _launch_conv(name: str, x: torch.Tensor, wk: torch.Tensor, pad: int,
 def _forward(xp: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     if xp.device.type == "cpu":
         return conv3x3_valid_reference(xp, k)
-    y = _launch_conv("conv3x3_valid", xp, _kernel_weight(k, xp.dtype), 0,
-                     False)
+    return _forward_cuda(xp, k)
+
+
+def _forward_cuda(xp: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """The forward kernel, its channels padded to multiples of 8."""
+    _check_channels("conv3x3_valid", xp, k.shape, 2)
+    c, o = k.shape[2], k.shape[3]
+    wk = _pad_weight(_kernel_weight(k, xp.dtype), _up8(o), _up8(c))
+    y = _launch_conv("conv3x3_valid", _pad_last(xp, _up8(c)), wk, 0, False)
     conv3x3_valid.launches += 1
-    return y
+    return y if o == y.shape[-1] else y[..., :o].contiguous()
 
 
 def conv3x3_dgrad(g: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -215,12 +257,18 @@ def conv3x3_dgrad(g: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     ``conv3x3_dgrad.launches`` counts those launches."""
     if g.device.type == "cpu":
         return conv3x3_dgrad_reference(g, k)
-    if g.dim() != 4:
-        raise ValueError(f"conv3x3_dgrad: want 4-D g, got {tuple(g.shape)}")
-    dxp = _launch_conv("conv3x3_dgrad", g.contiguous(),
-                       _kernel_weight(k, g.dtype), 2, True)
+    return _dgrad_cuda(g, k)
+
+
+def _dgrad_cuda(g: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """The dgrad kernel, its channels padded to multiples of 8."""
+    _check_channels("conv3x3_dgrad", g, k.shape, 3)
+    c, o = k.shape[2], k.shape[3]
+    wk = _pad_weight(_kernel_weight(k, g.dtype), _up8(o), _up8(c))
+    dxp = _launch_conv("conv3x3_dgrad", _pad_last(g.contiguous(), _up8(o)),
+                       wk, 2, True)
     conv3x3_dgrad.launches += 1
-    return dxp
+    return dxp if c == dxp.shape[-1] else dxp[..., :c].contiguous()
 
 
 def _wgrad_tiles(c: int, o: int) -> int:
@@ -274,10 +322,28 @@ def conv3x3_wgrad(xp: torch.Tensor, g: torch.Tensor,
     ``conv3x3_wgrad.launches`` counts its calls."""
     if xp.device.type == "cpu":
         return conv3x3_wgrad_reference(xp, g).to(out_dtype)
-    b, hp, wp, c = xp.shape
-    if g.dim() != 4 or tuple(g.shape[:3]) != (b, hp - 2, wp - 2):
+    return _wgrad_cuda(xp, g, out_dtype)
+
+
+def _wgrad_cuda(xp: torch.Tensor, g: torch.Tensor,
+                out_dtype: torch.dtype) -> torch.Tensor:
+    """The wgrad kernel, its channels padded to multiples of 8."""
+    if xp.dim() != 4 or g.dim() != 4 or tuple(g.shape[:3]) != (
+            xp.shape[0], xp.shape[1] - 2, xp.shape[2] - 2):
         raise ValueError(f"conv3x3_wgrad: g {tuple(g.shape)} does not match "
                          f"xp {tuple(xp.shape)}")
+    c, o = xp.shape[-1], g.shape[-1]
+    dk = _launch_wgrad(_pad_last(xp, _up8(c)),
+                       _pad_last(g.contiguous(), _up8(o)), out_dtype)
+    conv3x3_wgrad.launches += 1
+    return dk if dk.shape[2:] == (c, o) else dk[:, :, :c, :o].contiguous()
+
+
+def _launch_wgrad(xp: torch.Tensor, g: torch.Tensor,
+                  out_dtype: torch.dtype) -> torch.Tensor:
+    """The conv3x3_wgrad.cu kernel on CUDA xp and g whose channels are
+    multiples of 8 -> dk (3, 3, C, O) in ``out_dtype``."""
+    b, hp, wp, c = xp.shape
     o = g.shape[-1]
     _check_cuda("conv3x3_wgrad", xp, (3, 3, c, o), g)
     if g.dtype != xp.dtype:
@@ -317,7 +383,6 @@ def conv3x3_wgrad(xp: torch.Tensor, g: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"conv3x3_wgrad: kernel launch failed with CUDA "
                            f"error {err}")
-    conv3x3_wgrad.launches += 1
     return dk
 
 

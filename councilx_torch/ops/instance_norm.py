@@ -15,8 +15,9 @@ every device:
 * backward (``_bwd_kernel``, ``_bwd_affine_kernel``): from the saved
   statistics, :func:`instance_norm_backward` -- the CUDA kernel in
   ``councilx_torch/csrc/instance_norm_bwd.cu`` (one cooperative launch that
-  splits HW) on a CUDA tensor, :func:`instance_norm_backward_reference` on
-  the CPU.
+  splits HW; one plain launch when the groups alone fill the card, as the
+  forward's) on a CUDA tensor, :func:`instance_norm_backward_reference` on
+  the CPU. Both take any batch.
 
 Nothing falls back: a CUDA input the kernels do not take raises.
 """
@@ -236,13 +237,10 @@ def _norm_bwd_grid(b: int, hw: int, c: int, vec: int, max_blocks: int):
     """(splits, rows per split) of HW for the backward kernel: groups of
     (sample, 64 channels), each split into chunks of whole iterations, as
     many chunks as the card holds at once -- ``max_blocks``, the
-    cooperative launch's limit -- and none empty. Raises if the groups
-    alone exceed it."""
+    cooperative launch's limit -- and none empty. When the groups alone
+    reach it: one split, one block per group, and the kernel's plain
+    launch of any size."""
     groups = b * -(-c // _NORM_CHANNELS)
-    if groups > max_blocks:
-        raise ValueError(f"instance_norm_backward: {groups} (sample, "
-                         f"channel block) groups exceed the {max_blocks} "
-                         f"blocks the card holds at once")
     return _split_rows(hw, vec, max_blocks // groups)
 
 
@@ -286,11 +284,17 @@ def instance_norm_backward(dy: torch.Tensor, x: torch.Tensor,
 
     On a CUDA tensor: the kernel of ``csrc/instance_norm_bwd.cu`` (K5, or K6
     with the affine), one cooperative launch that splits HW over the card
-    and sums in a fixed order (bit-deterministic).
+    and sums in a fixed order (bit-deterministic), or, when the groups
+    alone fill the card, one plain launch of a block per group.
     ``instance_norm_backward.launches`` counts its launches and
     ``instance_norm_backward.affine_launches`` those with the affine."""
     if dy.device.type == "cpu":
         return instance_norm_backward_reference(dy, x, mean, rstd, gamma)
+    return _backward_cuda(dy, x, mean, rstd, gamma)
+
+
+def _backward_cuda(dy, x, mean, rstd, gamma):
+    """The backward kernel's launch (see :func:`instance_norm_backward`)."""
     _check_cuda("instance_norm_backward", x, gamma)
     dy = dy.contiguous()
     if dy.shape != x.shape or dy.device != x.device or dy.dtype != x.dtype:
@@ -315,18 +319,19 @@ def instance_norm_backward(dy: torch.Tensor, x: torch.Tensor,
         splits, rows = _norm_bwd_grid(
             b, h * w, c, vec,
             _norm_bwd_capacity(x.device, dtype, vec, gamma is not None))
-        part = torch.empty((b, splits, c, 2), dtype=torch.float32,
-                           device=x.device)
+        part = (torch.empty((b, splits, c, 2), dtype=torch.float32,
+                            device=x.device) if splits > 1 else None)
         err = _norm_bwd_lib().councilx_instance_norm_bwd(
             dy.data_ptr(), x.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
             gamma.data_ptr() if gamma is not None else None, dx.data_ptr(),
             dgamma.data_ptr() if dgamma is not None else None,
             dbeta.data_ptr() if dbeta is not None else None,
-            part.data_ptr(), b, h * w, c, dtype, vec, splits, rows,
+            part.data_ptr() if part is not None else None, b, h * w, c,
+            dtype, vec, splits, rows,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"instance_norm_backward: cooperative launch "
-                           f"failed with CUDA error {err}")
+        raise RuntimeError(f"instance_norm_backward: launch failed with "
+                           f"CUDA error {err}")
     instance_norm_backward.launches += 1
     if gamma is not None:
         instance_norm_backward.affine_launches += 1

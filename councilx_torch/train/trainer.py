@@ -91,6 +91,25 @@ class TrainState:
                     for grp in GROUPS}
                 for d in self.gen}
 
+    def snapshot(self) -> Dict[str, Any]:
+        """Everything :meth:`CouncilTrainer.restore_state` needs to go on
+        exactly where this state is (the checkpoint payload of
+        ``ckpt.manager``): the step, the parameters as
+        :meth:`state_dicts`, the three optimizer states and the z
+        generator's state, all copied to the CPU before this returns."""
+        def host(ts):
+            return [t.detach().to("cpu", copy=True) for t in ts]
+
+        return {
+            "step": int(self.step),
+            "params": self.state_dicts(),
+            "opt": {grp: {"count": opt.count.detach().to("cpu", copy=True),
+                          "mu": host(opt.mu), "nu": host(opt.nu)}
+                    for grp, opt in (("gen", self.opt_gen),
+                                     ("dis", self.opt_dis),
+                                     ("cdis", self.opt_cdis))},
+            "generator": self.generator.get_state()}
+
 
 def group_params(modules: Mapping[str, Sequence[torch.nn.Module]]
                  ) -> List[torch.nn.Parameter]:
@@ -208,6 +227,30 @@ class CouncilTrainer:
                 for m, sd in zip(members[d][grp], sds):
                     m.load_state_dict(sd, strict=True)
         return self._state(members, seed)
+
+    def restore_state(self, payload: Mapping[str, Any]) -> TrainState:
+        """The ``TrainState`` that :meth:`TrainState.snapshot` saved:
+        parameters, Adam moments and counts, the step and the z
+        generator's state, on this trainer's device (counterpart of the
+        JAX trainer's ``place_state`` of a restored snapshot). A resumed
+        run then steps exactly as the uninterrupted one."""
+        state = self.load_state(payload["params"])
+        state.step = int(payload["step"])
+        state.generator.set_state(payload["generator"])
+        for grp in GROUPS:
+            params = group_params(getattr(state, grp))
+            saved = payload["opt"][grp]
+            for key in ("mu", "nu"):
+                if len(saved[key]) != len(params) or any(
+                        t.shape != p.shape
+                        for t, p in zip(saved[key], params)):
+                    raise ValueError(f"snapshot: {grp} optimizer {key} does "
+                                     f"not match the {grp} parameters")
+            setattr(state, f"opt_{grp}", AdamState(
+                count=saved["count"].to(self.device, torch.int32),
+                mu=[t.to(self.device) for t in saved["mu"]],
+                nu=[t.to(self.device) for t in saved["nu"]]))
+        return state
 
     # ------------------------------------------------------------------
     # model application

@@ -36,6 +36,13 @@ CONV = (8, 64, 64, 256, 256)        # xp (8, 66, 66, 256), k (3, 3, 256, 256)
     ("instance_norm_bwd", (8, 128, 128, 128), 0.03005, "bytes"),
     ("instance_norm_bwd", (8, 256, 256, 64), 0.06010, "bytes"),
     ("adain_bwd", (8, 64, 64, 256), 0.01504, "bytes"),
+    # the repaired inputs: the norm backward at batch 128, 3 x 268.4 MB +
+    # 262 KB (655 KB with the affine); the conv at C = 12, O = 20,
+    # 141.6 MFLOP against 2.15 MB of xp, y and k
+    ("instance_norm_bwd", chip_smoke.NORM_BWD_BATCH128, 0.2405, "bytes"),
+    ("adain_bwd", chip_smoke.NORM_BWD_BATCH128, 0.2406, "bytes"),
+    ("conv3x3", chip_smoke.CONV_RAGGED, 0.0006422, "bytes"),
+    ("conv3x3_wgrad", chip_smoke.CONV_RAGGED, 0.0006422, "bytes"),
 ])
 def test_bound_matches_the_hand_arithmetic(name, shape, ms, by):
     got, got_by = chip_smoke.bound_ms(name, shape)
@@ -100,3 +107,46 @@ def test_profile_classes_take_the_ports_kernels_before_cudnn(name, label):
     # the cuDNN class matches "conv", "wgrad" and "dgrad" substrings, so the
     # port's kernels must be claimed first
     assert profile_port.classify(name) == label
+
+
+def test_chip_smoke_writes_the_train_cli_folders(tmp_path, monkeypatch):
+    """Phase 8's seeded JPEG folders: four splits of CLI_IMAGES images,
+    each at least the headline's new_size on its shorter side, the same
+    bytes on every call."""
+    from PIL import Image
+
+    monkeypatch.setattr(chip_smoke, "CLI_IMAGES", 3)
+    chip_smoke.write_folders(str(tmp_path / "a"))
+    chip_smoke.write_folders(str(tmp_path / "b"))
+    for split in ("trainA", "trainB", "testA", "testB"):
+        names = sorted(p.name for p in (tmp_path / "a" / split).iterdir())
+        assert names == ["0000.jpg", "0001.jpg", "0002.jpg"]
+        for name in names:
+            a = (tmp_path / "a" / split / name).read_bytes()
+            assert a == (tmp_path / "b" / split / name).read_bytes()
+            with Image.open(tmp_path / "a" / split / name) as img:
+                assert min(img.size) >= chip_smoke.HEADLINE["new_size"]
+
+
+def test_chip_smoke_times_the_decode_from_empty_queues(tmp_path, monkeypatch):
+    """Phase 8's decode rate: both train loaders hand over the asked
+    number of batches, and the path that decoded them is reported."""
+    from councilx_torch.config import Config
+    from councilx_torch.data import loader
+
+    monkeypatch.setattr(chip_smoke, "CLI_IMAGES", 4)
+    chip_smoke.write_folders(str(tmp_path))
+    cfg = Config.from_dict({**chip_smoke.HEADLINE, "batch_size": 2,
+                            "data_root": str(tmp_path)})
+    served = []
+    real_iter = loader.DataLoader.__iter__
+
+    def counted(self):
+        for batch in real_iter(self):
+            served.append(batch.shape)
+            yield batch
+
+    monkeypatch.setattr(loader.DataLoader, "__iter__", counted)
+    seconds, native = chip_smoke.decode_seconds(cfg, 4)
+    assert seconds > 0 and isinstance(native, bool)
+    assert served == [(2, 270, 270, 3)] * 8

@@ -157,9 +157,11 @@ def test_instance_norm_forward_is_deterministic(cuda, dtype, shape, affine):
 
 
 def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
+    # C = 12 is padded to 16 and taken; a kernel of other input channels
+    # is refused before any padding could hide it
     x = torch.zeros(1, 6, 6, 12, device=cuda)
-    with pytest.raises(ValueError, match="multiples of 8"):
-        conv3x3_valid(x, torch.zeros(3, 3, 12, 8, device=cuda))
+    with pytest.raises(ValueError, match="does not match"):
+        conv3x3_valid(x, torch.zeros(3, 3, 10, 8, device=cuda))
     x = torch.zeros(1, 6, 6, 8, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         conv3x3_valid(x.transpose(1, 2), torch.zeros(3, 3, 8, 8,
@@ -485,3 +487,95 @@ def test_train_step_on_gpu_matches_cpu(cuda):
             np.testing.assert_allclose(float(got[k]), float(want[k]),
                                        rtol=1e-4, err_msg=k)
     assert conv3x3_wgrad.launches > before
+
+
+# ---------------------------------------------------------------------------
+# inputs the kernels once refused: the norm backward at any batch, the conv
+# at channel counts that are not multiples of 8
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("affine", [False, True])
+def test_instance_norm_backward_at_batch_128(cuda, dtype, affine):
+    """(128, 64, 64, 256): 512 groups, more than one cooperative launch
+    holds in bf16 (396 blocks on an H100) and too many to split in f32, so
+    one plain launch of a block per group; it matches the plain version and
+    two calls are bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    shape = (128, 64, 64, 256)
+    x = (torch.randn(*shape, device=cuda, generator=g) * 3 + 1).to(dtype)
+    dy = torch.randn(*shape, device=cuda, generator=g).to(dtype)
+    gm = (torch.randn(128, 256, device=cuda, generator=g) if affine
+          else None)
+    cap = norm_ops._norm_bwd_capacity(cuda, 1 if dtype == torch.bfloat16
+                                      else 0, 16 // x.element_size(),
+                                      affine)
+    assert norm_ops._norm_bwd_grid(128, 64 * 64, 256,
+                                   16 // x.element_size(), cap)[0] == 1
+    _, mean, rstd = instance_norm_forward_reference(x, gm, gm)
+    before = instance_norm_backward.launches
+    got = instance_norm_backward(dy, x, mean, rstd, gm)
+    again = instance_norm_backward(dy, x, mean, rstd, gm)
+    assert instance_norm_backward.launches == before + 2
+    want = instance_norm_backward_reference(dy, x, mean, rstd, gm)
+    # as test_instance_norm_backward_kernel_matches_plain
+    _close(got[0], want[0], 2 ** -6 if dtype == torch.bfloat16 else 1e-4)
+    if affine:
+        _close(got[1], want[1], 1e-4)
+        _close(got[2], want[2], 1e-4)
+    for u, v in zip(got, again):
+        assert (u is None and v is None) or torch.equal(u, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c,o", [(12, 20), (3, 8), (16, 5)])
+def test_conv3x3_at_channels_not_multiples_of_8(cuda, dtype, c, o):
+    """C and O are zero-padded to multiples of 8 around the same kernels:
+    forward, dgrad and wgrad each launch once and match the plain
+    versions."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    b, h, w = 2, 17, 23
+    xp = torch.randn(b, h + 2, w + 2, c, device=cuda, generator=g).to(dtype)
+    k = (torch.randn(3, 3, c, o, device=cuda, generator=g)
+         / (9 * c) ** 0.5).to(dtype)
+    gy = torch.randn(b, h, w, o, device=cuda, generator=g).to(dtype)
+    counts = (conv3x3_valid.launches, conv3x3_dgrad.launches,
+              conv3x3_wgrad.launches)
+    y = conv3x3_valid(xp, k)
+    dxp = conv3x3_dgrad(gy, k)
+    dk = conv3x3_wgrad(xp, gy, dtype)
+    torch.cuda.synchronize()
+    assert (conv3x3_valid.launches, conv3x3_dgrad.launches,
+            conv3x3_wgrad.launches) == tuple(n + 1 for n in counts)
+    assert y.shape == (b, h, w, o) and dxp.shape == xp.shape
+    assert dk.shape == (3, 3, c, o)
+    # as test_conv3x3_kernel_matches_plain and the backward test: one
+    # rounding of an f32 sum (bf16), or sums in another order (f32)
+    rel = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+    _close(y, conv3x3_valid_reference(xp.float(), k.float()), rel)
+    _close(dxp, conv3x3_dgrad_reference(gy.float(), k.float()), rel)
+    _close(dk, conv3x3_wgrad_reference(xp, gy),
+           2 ** -7 if dtype == torch.bfloat16 else 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the train loop's data path on the card
+# ---------------------------------------------------------------------------
+
+
+def test_augment_on_the_card_equals_the_cpu(cuda):
+    """The crop-and-flip gather and the normalize on the card give the CPU
+    result bit for bit, at the headline shape (batch 8, 270 -> 256)."""
+    from councilx_torch.data.ondevice import augment_batch, draw_crops
+
+    x = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (8, 270, 270, 3), dtype=np.uint8))
+    crops = draw_crops(0, 3, 0, range(8), 270, 270, 256, 256)
+    want = augment_batch(x, 256, 256, crops=crops)
+    got = augment_batch(x.pin_memory().to(cuda, non_blocking=True), 256,
+                        256, crops=crops.pin_memory())
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(augment_batch(x.to(cuda), 256, 256, train=False).cpu(),
+                       augment_batch(x, 256, 256, train=False))

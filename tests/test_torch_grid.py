@@ -77,7 +77,7 @@ def test_wgrad_f32_split_covers_every_pixel_once(c, o, pixels):
 NORM_CASES = [(8, 64 * 64, 256, 8), (8, 128 * 128, 128, 8),
               (8, 256 * 256, 64, 8), (8, 64 * 64, 256, 4),
               (2, 5 * 7, 24, 8), (2, 5 * 7, 6, 1), (1, 9, 200, 1),
-              (16, 4, 1024, 8)]
+              (16, 4, 1024, 8), (128, 64 * 64, 256, 8)]
 
 
 @pytest.mark.parametrize("b,hw,c,vec", NORM_CASES)
@@ -90,7 +90,10 @@ def test_norm_backward_grid_fits_the_cooperative_launch(b, hw, c, vec,
     assert rows % per_iter == 0
     _covers_once(splits, rows, hw)
     groups = b * -(-c // norm_ops._NORM_CHANNELS)
-    assert 1 <= splits and groups * splits <= max_blocks
+    if groups >= max_blocks:
+        assert splits == 1          # the plain launch, of any size
+    else:
+        assert 1 <= splits and groups * splits <= max_blocks
 
 
 def test_norm_backward_grid_at_the_resblock_sites():
@@ -103,8 +106,12 @@ def test_norm_backward_grid_at_the_resblock_sites():
 
 
 def test_norm_backward_grid_raises_when_the_groups_do_not_fit():
-    with pytest.raises(ValueError, match="groups exceed"):
-        norm_ops._norm_bwd_grid(64, 16, 2048, 8, 1000)
+    """It no longer raises: where the groups do not fit one cooperative
+    launch, the backward takes the forward's mode -- one split, one block
+    per group over the whole of HW, the plain launch."""
+    assert norm_ops._norm_bwd_grid(64, 16, 2048, 8, 1000) == (1, 32)
+    # batch 128 at the resblocks: 512 groups, 396 co-resident blocks
+    assert norm_ops._norm_bwd_grid(128, 4096, 256, 8, 396) == (1, 4096)
 
 
 # the forward also runs at serving's bucket 64 (more groups than the card
