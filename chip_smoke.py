@@ -46,12 +46,31 @@ Phases, in order; any failure raises and exits non-zero:
    launched; then ``cli.translate --member all`` on testA and one
    ``cli.gui`` render from the step-8 snapshot. Prints the loop's img/s
    beside phase 6's, the snapshot's size and the seconds its save held the
-   loop, and which decode path ran.
+   loop, and which decode path ran;
+9. eval (run after phase 5, beside phase 4's checkpoint):
+   ``python -m councilx_torch.cli.eval``'s ``main`` on phase 4's
+   council-4 checkpoint, ``--member all --kid --allow-random --batch_size
+   16``, over phase 8's seeded folders (32 images in testA, 32 in testB):
+   every member's FID finite, the best member their argmin, 32 images
+   translated, and the kernels' launches over the call those of 4 members
+   x 2 batches; member 0's translate of the call's first batch (16
+   images, its z) on the card, bf16 and f32, held against the CPU at
+   phase 5's tolerances; the card's Inception features (float32; the
+   module turns TF32 off itself, so the script turns it on around the
+   call) held against the same module on the CPU for the same 4 images,
+   and the two FIDs against each other; a ``TrainEvalHook`` on a
+   headline-config trainer (16 images, every member, random weights)
+   called once, then its translate + feature pass twice more on the same
+   state: bit-equal, the training z stream untouched. Prints translate and
+   Inception img/s on the card, the PIL preprocessing ms per image, the
+   FID's seconds (its 2048x2048 sqrtm on the host) and the hook's seconds
+   per call.
 
 Phase 3 also holds two inputs the kernels once refused: the norm backward
 at batch 128 (more groups than one cooperative launch holds: its plain
 launch) and the conv, dgrad and wgrad at C = 12, O = 20 (channels padded to
-multiples of 8 around the same kernels).
+multiples of 8 around the same kernels); and the eval path's kernels at
+its batch of 16 (the conv, the norm forward at its three sites, AdaIN).
 
 The line before the last is one JSON object describing every kernel; the
 last is ``{"ok": true, "device": {...}}``.
@@ -70,7 +89,7 @@ import torch.nn.functional as F
 
 from councilx_torch.cli.serve import build_engine
 from councilx_torch.config import Config
-from councilx_torch.inference.translate import Translator
+from councilx_torch.inference.translate import Translator, _u8_from_unit
 from councilx_torch.ops import _build
 from councilx_torch.ops import conv3x3 as conv_ops
 from councilx_torch.ops import instance_norm as norm_ops
@@ -160,6 +179,13 @@ CLI_STEPS, CLI_RESUME_STEPS = 6, 2
 CLI_CADENCE = {"log_iter": 2, "image_save_iter": 3, "image_display_iter": 3,
                "snapshot_save_iter": 3}
 CLI_IMAGES = 32
+# phase 9: cli.eval's translate batch and Inception batch (the CLI's
+# default --feature_batch_size), the images held card against CPU, and
+# the hook's images per domain
+EVAL_BATCH = 16
+EVAL_FEATURE_BATCH = 32
+EVAL_CPU_IMAGES = 4
+EVAL_HOOK_IMAGES = 16
 
 # the card's peak rates (NVIDIA H100 SXM data sheet, dense, at the full
 # 700 W): bf16 on the tensor cores, f32 on the FMA units, device memory
@@ -401,13 +427,6 @@ def phase_kernels(g: torch.Generator, card_str: str) -> dict:
              + 1).to(dt)
         gm = torch.randn(BATCH, 256, device="cuda", generator=g)
         bt = torch.randn(BATCH, 256, device="cuda", generator=g)
-
-        def adain_lib(x, gm, bt):
-            b, h, w, c = x.shape
-            return F.instance_norm(
-                x.permute(0, 3, 1, 2).reshape(1, b * c, h, w),
-                weight=gm.flatten(), bias=bt.flatten(), eps=1e-5)
-
         cases.append(("adain", "norm", dt, tuple(x.shape), tuple(x.shape),
                       lambda x=x, gm=gm, bt=bt: norm_ops._forward(
                           x, gm, bt, 1e-5),
@@ -449,7 +468,7 @@ def phase_kernels(g: torch.Generator, card_str: str) -> dict:
                     lambda out=out, leaves=leaves, dyl=dyl:
                         torch.autograd.grad(out, leaves, dyl,
                                             retain_graph=True)))
-    cases += repaired_cases(g)
+    cases += repaired_cases(g) + eval_batch_cases(g)
     for name, kind, dt, shape, work, kern, plain, library in cases:
         got = kern()
         torch.cuda.synchronize()
@@ -495,6 +514,51 @@ def phase_kernels(g: torch.Generator, card_str: str) -> dict:
             "library_ms": library_ms, "bound_ms": bms, "bound_by": bound_by,
             "bound_share": bms / ms}
     return results
+
+
+def adain_lib(x, gm, bt):
+    """The AdaIN forward's library call: F.instance_norm on x reshaped to
+    (1, B*C, H, W) with the flattened per-(sample, channel) gamma and
+    beta, as MUNIT's AdaptiveInstanceNorm2d computes it."""
+    b, h, w, c = x.shape
+    return F.instance_norm(x.permute(0, 3, 1, 2).reshape(1, b * c, h, w),
+                           weight=gm.flatten(), bias=bt.flatten(), eps=1e-5)
+
+
+def eval_batch_cases(g: torch.Generator) -> list:
+    """Phase 3's cases at the eval path's batch (EVAL_BATCH: phase 9's
+    ``cli.eval --batch_size`` and the hook's images), in bf16 as that path
+    runs them: the conv, the norm forward at its three sites and the AdaIN
+    forward (the norm grid's split over the (sample, channel) groups
+    changes with the batch). Same tolerances, library calls and bound as
+    the main shapes."""
+    dt = torch.bfloat16
+    b = EVAL_BATCH
+    xp = torch.randn(b, 66, 66, 256, device="cuda", generator=g).to(dt)
+    k = hwio_weight(torch.randn(256, 256, 3, 3, device="cuda", generator=g)
+                    / 48.0, dt)
+    xn = xp.permute(0, 3, 1, 2)
+    wn = k.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
+    cases = [("conv3x3", "conv", dt, tuple(xp.shape), (b, 64, 64, 256, 256),
+              lambda: conv3x3_valid(xp, k),
+              lambda: conv3x3_valid_reference(xp, k),
+              lambda: F.conv2d(xn, wn))]
+    for shape in ((b,) + s[1:] for s in NORM_SHAPES):
+        x = (torch.randn(*shape, device="cuda", generator=g) * 3 + 1).to(dt)
+        cases.append(("instance_norm", "norm", dt, shape, shape,
+                      lambda x=x: norm_ops._forward(x, None, None, 1e-5),
+                      lambda x=x: instance_norm_forward_reference(x),
+                      lambda x=x: F.instance_norm(x.permute(0, 3, 1, 2),
+                                                  eps=1e-5)))
+    x = (torch.randn(b, 64, 64, 256, device="cuda", generator=g) * 3
+         + 1).to(dt)
+    gm = torch.randn(b, 256, device="cuda", generator=g)
+    bt = torch.randn(b, 256, device="cuda", generator=g)
+    cases.append(("adain", "norm", dt, tuple(x.shape), tuple(x.shape),
+                  lambda: norm_ops._forward(x, gm, bt, 1e-5),
+                  lambda: instance_norm_forward_reference(x, gm, bt),
+                  lambda: adain_lib(x, gm, bt)))
+    return cases
 
 
 def repaired_cases(g: torch.Generator) -> list:
@@ -710,9 +774,12 @@ def phase_serve(card_str: str, tmp: str):
     return ckpt, launches
 
 
-def phase_accuracy(ckpt: str, card_str: str):
-    """Phase 5: member 0, 2 images, fixed z: the card's bf16 path and f32
-    path against the port on the CPU in f32 (the plain versions).
+def phase_accuracy(ckpt: str, card_str: str, x=None, z=None,
+                   where: str = "accuracy"):
+    """Phase 5: member 0, fixed z: the card's bf16 path and f32 path
+    against the port on the CPU in f32 (the plain versions), on 2 random
+    images, or on the batch ``x`` with its codes ``z`` (phase 9 passes the
+    eval call's first batch: the kernels at its batch size).
 
     Tolerances in [-1, 1] output units:
       f32 on the card: max 1e-3 — same math, other summation orders
@@ -723,12 +790,13 @@ def phase_accuracy(ckpt: str, card_str: str):
 
     cfg32 = Config.from_dict({**FLAGSHIP, "compute_dtype": "float32"})
     sd0 = load_generator_state_dicts(ckpt, cfg32)[0]
-    rng = np.random.default_rng(1)
-    x = rng.uniform(-1, 1, (2, HW, HW, 3)).astype(np.float32)
-    z = rng.standard_normal((2, 8)).astype(np.float32)
+    if x is None:
+        rng = np.random.default_rng(1)
+        x = rng.uniform(-1, 1, (2, HW, HW, 3)).astype(np.float32)
+        z = rng.standard_normal((2, 8)).astype(np.float32)
     tr_cpu = Translator(cfg32, device="cpu")
     ref = tr_cpu.translate(tr_cpu.load_members([sd0])[0], x, z)[0].numpy()
-    if ref.shape != (2, HW, HW, 3) or not np.isfinite(ref).all():
+    if ref.shape != (len(x), HW, HW, 3) or not np.isfinite(ref).all():
         raise AssertionError(f"CPU reference: {ref.shape}, non-finite")
     for name, cfg, tol_mean, tol_max in (
             ("f32", cfg32, 1e-3, 1e-3),
@@ -738,11 +806,12 @@ def phase_accuracy(ckpt: str, card_str: str):
         if got.shape != ref.shape or not np.isfinite(got).all():
             raise AssertionError(f"{name}: {got.shape}, non-finite values")
         d = np.abs(got - ref)
-        log(f"[accuracy] card {name} vs CPU f32: mean abs {d.mean():.6g} "
-            f"max abs {d.max():.6g} (tol mean {tol_mean}, max {tol_max}) "
-            f"[{card_str}]")
+        log(f"[{where}] card {name} vs CPU f32, member 0 at batch "
+            f"{len(x)}: mean abs {d.mean():.6g} max abs {d.max():.6g} (tol "
+            f"mean {tol_mean}, max {tol_max}) [{card_str}]")
         if not (d.mean() <= tol_mean and d.max() <= tol_max):
-            raise AssertionError(f"card {name} path disagrees with CPU f32")
+            raise AssertionError(f"card {name} path disagrees with CPU f32 "
+                                 f"at batch {len(x)}")
 
 
 def _finite(metrics) -> bool:
@@ -1073,6 +1142,191 @@ def phase_train_cli(card_str: str, tmp: str, step_ips: float) -> dict:
     return got
 
 
+def eval_launches(images: int, batch: int, members: int) -> dict:
+    """Every counter over one ``cli.eval --member all`` call: each batch
+    (the tail padded to ``batch``) is one forward of every member, under
+    no gradient."""
+    fwd = members * -(-images // batch)
+    want = {name: 0 for name in _snapshot()}
+    want.update({"conv3x3_valid.launches": CONV_PER_FWD * fwd,
+                 "instance_norm.launches": NORM_PER_FWD * fwd,
+                 "instance_norm.affine_launches": ADAIN_PER_FWD * fwd})
+    return want
+
+
+def check_eval(out: dict, launches: dict, images: int, batch: int,
+               members: int) -> None:
+    """Raise unless a ``cli.eval --member all`` result is whole: one
+    finite FID per member, the best member their argmin, every image
+    translated, and the kernels launched exactly as ``eval_launches``
+    says."""
+    fids = out["fid_per_member"]
+    if len(fids) != members or not np.isfinite(fids).all():
+        raise AssertionError(f"eval: per-member FID {fids}")
+    if out["best_member"] != int(np.argmin(fids)) or \
+            out["fid"] != fids[out["best_member"]]:
+        raise AssertionError(f"eval: best member {out['best_member']} is "
+                             f"not the argmin of {fids}")
+    if out["n_translated"] != images:
+        raise AssertionError(f"eval: {out['n_translated']} images "
+                             f"translated, want {images}")
+    want = eval_launches(images, batch, members)
+    if launches != want:
+        raise AssertionError(f"eval launches {launches} != {want}")
+
+
+def phase_eval(card_str: str, tmp: str, ckpt: str) -> dict:
+    """Phase 9: the eval CLI on phase 4's checkpoint, the Inception
+    features card against CPU, and the in-training FID hook. Returns the
+    kernels' launch counts over the eval call."""
+    import warnings
+
+    import yaml
+
+    from councilx_torch.ckpt.manager import load_generator_state_dicts
+    from councilx_torch.cli import eval as eval_cli
+    from councilx_torch.config import load_config
+    from councilx_torch.data.dataset import ImageFolderDataset
+    from councilx_torch.data.loader import get_all_data_loaders
+    from councilx_torch.data.ondevice import normalize_batch
+    from councilx_torch.eval.features import (extract_features,
+                                              iter_image_batches,
+                                              u8_to_inception_inputs)
+    from councilx_torch.eval.hook import TrainEvalHook
+    from councilx_torch.eval.inception import (InceptionV3Features,
+                                               make_inception)
+    from councilx_torch.eval.metrics import fid_from_features
+
+    data = os.path.join(tmp, "data")
+    write_folders(data)
+    cfg_path = os.path.join(tmp, "flagship.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(FLAGSHIP, f)
+    test_a, test_b = (os.path.join(data, s) for s in ("testA", "testB"))
+
+    reset_counts()
+    t0 = time.perf_counter()
+    out = eval_cli.main(["--config", cfg_path, "--checkpoint", ckpt,
+                         "--input_folder", test_a, "--target_folder", test_b,
+                         "--member", "all", "--kid", "--allow-random",
+                         "--batch_size", str(EVAL_BATCH)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = _snapshot()
+    log(f"[eval] cli.eval --member all: FID per member "
+        f"{out['fid_per_member']}, best {out['best_member']}, "
+        f"{out['n_translated']} translated, {out['n_target']} targets, in "
+        f"{seconds:.6g} s; launches {json.dumps(got)} [{card_str}]")
+    check_eval(out, got, CLI_IMAGES, EVAL_BATCH, N_MEMBERS)
+
+    # the eval path's layers, timed apart: the council's translate of one
+    # batch on the card, the Inception features on the card, the PIL
+    # preprocessing and the FID on the host
+    cfg = load_config(cfg_path)
+    tr = Translator(cfg, device="cuda")
+    gens = tr.load_members(load_generator_state_dicts(ckpt, cfg))
+    ds = ImageFolderDataset(test_a, new_size=cfg.data.new_size,
+                            crop=cfg.data.crop_image_height)
+    # the eval call's first batch and its codes (cli.eval draws them from
+    # a torch.Generator seeded with --seed, 1 by default)
+    x = normalize_batch(torch.from_numpy(
+        np.stack([ds[i] for i in range(EVAL_BATCH)])))
+    z = torch.randn((N_MEMBERS, EVAL_BATCH, cfg.gen.style_dim),
+                    generator=torch.Generator().manual_seed(1))
+    phase_accuracy(ckpt, card_str, x=x, z=z[0], where="eval")
+    ms = median_ms(lambda: tr.translate_all_members(gens, x, z=z), reps=5)
+    tr_ms = float(np.median(ms))
+    u8 = _u8_from_unit(tr.translate_all_members(gens, x, z=z)[0][0]
+                       ).cpu().numpy()
+    t0 = time.perf_counter()
+    inputs = u8_to_inception_inputs(u8)
+    pil_ms = 1e3 * (time.perf_counter() - t0) / EVAL_BATCH
+    log(f"[eval] translate, every member, batch {EVAL_BATCH}: "
+        f"{tr_ms:.6g} ms per call (the upload included), "
+        f"{N_MEMBERS * EVAL_BATCH / (tr_ms / 1e3):.6g} member img/s "
+        f"[{card_str}]")
+    log(f"[eval] PIL preprocessing (resize {HW} -> 299, normalize) on the "
+        f"host: {pil_ms:.6g} ms per image [{card_str}]")
+
+    model = make_inception("random", "cuda")
+    batch = torch.from_numpy(np.concatenate(
+        [inputs, inputs])[:EVAL_FEATURE_BATCH]).cuda()
+    ms = median_ms(lambda: model(batch), reps=5)
+    inc_ms = float(np.median(ms))
+    log(f"[eval] Inception features (f32, TF32 off), batch "
+        f"{EVAL_FEATURE_BATCH} on the card: {inc_ms:.6g} ms, "
+        f"{EVAL_FEATURE_BATCH / (inc_ms / 1e3):.6g} img/s [{card_str}]")
+
+    # card against CPU on the same 4 images; TF32 on around the call, so
+    # the module must switch it off itself
+    cpu = InceptionV3Features(device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    target = next(iter_image_batches(test_b, EVAL_CPU_IMAGES))
+    n = EVAL_CPU_IMAGES
+    feats = {}
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for name, m in (("card", model), ("cpu", cpu)):
+            feats[name] = (extract_features(m, [inputs[:n]]),
+                           extract_features(m, [target]))
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev[0]
+        torch.backends.cuda.matmul.allow_tf32 = prev[1]
+    ref = np.concatenate(feats["cpu"])
+    rel = float(np.abs(np.concatenate(feats["card"]) - ref).max()
+                / np.abs(ref).max())
+    t0 = time.perf_counter()
+    fid_card = fid_from_features(*feats["card"])
+    fid_s = time.perf_counter() - t0
+    fid_cpu = fid_from_features(*feats["cpu"])
+    fid_rel = abs(fid_card - fid_cpu) / abs(fid_cpu)
+    log(f"[eval] Inception features card vs CPU, {n} translated + {n} "
+        f"target images: max |diff| / max |CPU| = {rel:.6g} (tol 1e-4); "
+        f"FID card {fid_card!r}, CPU {fid_cpu!r}, relative difference "
+        f"{fid_rel:.6g} (tol 1e-4) [{card_str}]")
+    log(f"[eval] FID on the host (float64, 2048x2048 scipy sqrtm): "
+        f"{fid_s:.6g} s per call [{card_str}]")
+    if not (rel <= 1e-4 and fid_rel <= 1e-4):
+        raise AssertionError(f"Inception on the card disagrees with the "
+                             f"CPU: {rel}, FID {fid_card} vs {fid_cpu}")
+    del model, cpu, gens, tr
+
+    # the in-training hook on a headline-config trainer; 256px frames
+    # (270 would not survive two stride-2 downsamples and back)
+    hcfg = Config.from_dict({**HEADLINE, "new_size": 256, "data_root": data,
+                             "eval_iter": 1, "eval_member": "all",
+                             "eval_inception_weights": "random",
+                             "eval_max_images": EVAL_HOOK_IMAGES})
+    trainer = CouncilTrainer(hcfg, device="cuda")
+    state = trainer.init_state(0)
+    loaders = get_all_data_loaders(hcfg)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        hook = TrainEvalHook(hcfg, trainer, loaders[2], loaders[3])
+    before = state.generator.get_state().clone()
+    t0 = time.perf_counter()
+    first = hook(trainer, state)
+    hook_s = time.perf_counter() - t0
+    log(f"[eval] hook, {EVAL_HOOK_IMAGES} images, every member: {first}; "
+        f"{hook_s:.6g} s per call ({len(caught)} warning(s): "
+        f"{[str(w.message)[:60] for w in caught]}) [{card_str}]")
+    if len(first) != N_MEMBERS + 1 or \
+            not np.isfinite(list(first.values())).all():
+        raise AssertionError(f"hook: {first}")
+    # the same state twice: the same features (and so the same FIDs)
+    again = [hook.features(trainer, state)["a2b"] for _ in range(2)]
+    if not all(np.array_equal(u, v) for u, v in zip(*again, strict=True)):
+        raise AssertionError("hook: two calls on one state differ")
+    if not torch.equal(state.generator.get_state(), before):
+        raise AssertionError("hook: the training z stream moved")
+    log(f"[eval] hook: two more translate + feature passes on the same "
+        f"state bit-equal, the training z stream untouched [{card_str}]")
+    return got
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -1095,6 +1349,7 @@ def main():
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
         ckpt, _ = phase_serve(card_str, tmp)
         phase_accuracy(ckpt, card_str)
+        phase_eval(card_str, tmp, ckpt)
     launches, step_ips = phase_train(card_str)
     phase_train_accuracy(card_str)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:

@@ -55,6 +55,22 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
     return tree
 
 
+def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def save_params_npz(path: str, params: Dict[str, Any]) -> None:
+    """A nested dict of arrays -> a flat ``/``-keyed ``.npz``, as
+    ``councilx.ckpt.manager.save_params_npz`` writes it."""
+    np.savez(path, **_flatten(params))
+
+
 def load_params_npz(path: str) -> Dict[str, Any]:
     """A flat ``/``-keyed ``.npz`` (``councilx.ckpt.manager.save_params_npz``)
     -> the nested dict of numpy arrays."""

@@ -209,12 +209,12 @@ class Config:
     display_size: int = 8
     # in-training FID cadence (0 = off, the default — and the reference
     # behavior): every eval_iter steps, translate a fixed test batch with
-    # member 0 and log fid_<direction> vs the target test split
-    # (councilx/eval/hook.py). Needs eval_inception_weights. Not ported
-    # yet: the port's train loop refuses eval_iter > 0.
+    # eval_member and log fid_<direction> vs the target test split
+    # (councilx_torch/eval/hook.py). Needs eval_inception_weights.
     eval_iter: int = 0
-    # InceptionV3 .npz (tools/convert_inception_pt.py); the literal
-    # "random" permits random weights for smoke tests (numbers meaningless)
+    # InceptionV3 .npz (tools/convert_inception_pt.py) or torchvision /
+    # pytorch-fid state dict (.pt/.pth); the literal "random" permits
+    # random weights for smoke tests (numbers meaningless)
     eval_inception_weights: str = ""
     # images per domain used by the in-training FID (bounds eval cost)
     eval_max_images: int = 64

@@ -92,8 +92,8 @@ def augment_batch(batch_u8: torch.Tensor, crop_h: int, crop_w: int,
 def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """(..., H, W, C) float -> (..., out_h, out_w, C): bilinear with
     half-pixel centres, antialiased when shrinking, as
-    ``jax.image.resize(method="bilinear")`` (not PIL-exact; training
-    only)."""
+    ``jax.image.resize(method="bilinear")`` (not PIL-exact): training,
+    and the Inception module's ``resize_input``."""
     lead, (h, w, c) = x.shape[:-3], x.shape[-3:]
     y = F.interpolate(x.reshape(-1, h, w, c).permute(0, 3, 1, 2),
                       size=(out_h, out_w), mode="bilinear",

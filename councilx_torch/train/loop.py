@@ -16,7 +16,11 @@ port:
   loop goes on and write the file in a background thread; the final one is
   written at the end, or at a stop request (``stop_event``);
 * ``profile_steps`` wraps those steps in a ``torch.profiler`` trace under
-  ``<run>/profile``.
+  ``<run>/profile``;
+* ``cfg.eval_iter > 0`` scores the council's translations of the test
+  split with FID every ``eval_iter`` steps (``eval/hook.py``), logged as
+  ``fid_<direction>`` after the step's metrics and before the sample
+  sheets, as the JAX loop does.
 
 A resumed run restores the parameters, the Adam moments and counts, the
 step and the z generator, fast-forwards the loaders by the step
@@ -24,7 +28,7 @@ step and the z generator, fast-forwards the loaders by the step
 bit for bit as the uninterrupted run would.
 
 Not ported yet (raise ``NotImplementedError``): ``num_devices > 1``,
-``council_parallel > 1``, ``det_data_reduction`` and ``eval_iter > 0``.
+``council_parallel > 1`` and ``det_data_reduction``.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from councilx_torch.ckpt.manager import (SNAPSHOT_FILE, latest_checkpoint,
 from councilx_torch.config import Config
 from councilx_torch.data.loader import get_all_data_loaders
 from councilx_torch.data.ondevice import augment_batch, draw_crops, row_seed
+from councilx_torch.eval.hook import TrainEvalHook
 from councilx_torch.train.trainer import CouncilTrainer
 from councilx_torch.utils.images import write_html, write_sample_sheet
 from councilx_torch.utils.logging import MetricLogger, prepare_sub_folder
@@ -54,8 +59,7 @@ _STREAM_A, _STREAM_B, _STREAM_SAMPLE = 0, 1, 7
 def _refuse_unported(cfg: Config) -> None:
     for on, what in ((cfg.num_devices > 1, "num_devices > 1"),
                      (cfg.council_parallel > 1, "council_parallel > 1"),
-                     (cfg.det_data_reduction, "det_data_reduction"),
-                     (cfg.eval_iter > 0, "eval_iter > 0 (in-training FID)")):
+                     (cfg.det_data_reduction, "det_data_reduction")):
         if on:
             raise NotImplementedError(
                 f"{what} is not ported yet to councilx_torch; train with "
@@ -133,6 +137,10 @@ def train(cfg: Config, output_path: str = "outputs", run_name: str = "run",
     disp_train_a = train_a.head_rows(disp_n)
     crop_h, crop_w = cfg.data.crop_image_height, cfg.data.crop_image_width
     h, w = cfg.data.new_size, cfg.data.new_size
+    # in-training FID against the test split; its inputs are head_rows, so
+    # it neither consumes nor races the loaders' streams
+    eval_hook = (TrainEvalHook(cfg, trainer, test_a, test_b)
+                 if cfg.eval_iter else None)
     logger = MetricLogger(run_dir)
 
     limit = min(cfg.max_iter, max_steps + start_step if max_steps
@@ -210,6 +218,9 @@ def train(cfg: Config, output_path: str = "outputs", run_name: str = "run",
                 t_window, window_steps = now, 0
                 host["images_per_sec"] = images_per_sec
                 logger.write(step, host)
+
+            if eval_hook is not None and step % cfg.eval_iter == 0:
+                logger.write(step, eval_hook(trainer, state))
 
             if cfg.image_save_iter and step % cfg.image_save_iter == 0:
                 _write_samples(trainer, state, disp_a, disp_train_a,

@@ -150,3 +150,52 @@ def test_chip_smoke_times_the_decode_from_empty_queues(tmp_path, monkeypatch):
     seconds, native = chip_smoke.decode_seconds(cfg, 4)
     assert seconds > 0 and isinstance(native, bool)
     assert served == [(2, 270, 270, 3)] * 8
+
+
+def test_eval_launches_are_4_members_by_2_batches():
+    """Phase 9's eval call: 32 images at batch 16 through council-4 is 8
+    member forwards of 16 convs and 19 norm sites (8 of them AdaIN), and
+    nothing under a gradient."""
+    want = chip_smoke.eval_launches(chip_smoke.CLI_IMAGES,
+                                    chip_smoke.EVAL_BATCH,
+                                    chip_smoke.N_MEMBERS)
+    assert want["conv3x3_valid.launches"] == 128
+    assert want["instance_norm.launches"] == 152
+    assert want["instance_norm.affine_launches"] == 64
+    assert sum(want.values()) == 128 + 152 + 64
+    assert set(want) == set(chip_smoke._snapshot())
+    # a padded tail batch is one more forward of every member
+    assert chip_smoke.eval_launches(33, 16, 4)[
+        "conv3x3_valid.launches"] == 16 * 4 * 3
+
+
+def _eval_out():
+    return {"fid": 1.5, "fid_per_member": [2.0, 1.5, 3.0, 2.5],
+            "best_member": 1, "n_translated": 32}
+
+
+@pytest.mark.parametrize("breakage", [
+    None, "launches", "grad_launch", "nan_fid", "best_member", "translated",
+    "members"])
+def test_check_eval_raises_on_a_failed_phase_9(breakage):
+    """The check passes a whole result and raises on each way phase 9 can
+    fail, so the script cannot go on to exit 0 past it."""
+    out = _eval_out()
+    launches = chip_smoke.eval_launches(32, 16, 4)
+    if breakage == "launches":
+        launches["conv3x3_valid.launches"] -= 16
+    elif breakage == "grad_launch":
+        launches["instance_norm_backward.launches"] = 1
+    elif breakage == "nan_fid":
+        out["fid_per_member"][2] = float("nan")
+    elif breakage == "best_member":
+        out["best_member"], out["fid"] = 0, 2.0
+    elif breakage == "translated":
+        out["n_translated"] = 31
+    elif breakage == "members":
+        out["fid_per_member"] = out["fid_per_member"][:3]
+    if breakage is None:
+        chip_smoke.check_eval(out, launches, 32, 16, 4)
+        return
+    with pytest.raises(AssertionError):
+        chip_smoke.check_eval(out, launches, 32, 16, 4)

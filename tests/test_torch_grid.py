@@ -105,10 +105,10 @@ def test_norm_backward_grid_at_the_resblock_sites():
     assert norm_ops._norm_bwd_grid(8, 65536, 64, 8, 396) == (49, 1344)
 
 
-def test_norm_backward_grid_raises_when_the_groups_do_not_fit():
-    """It no longer raises: where the groups do not fit one cooperative
-    launch, the backward takes the forward's mode -- one split, one block
-    per group over the whole of HW, the plain launch."""
+def test_norm_backward_grid_takes_the_plain_launch_when_the_groups_do_not_fit():
+    """Where the groups do not fit one cooperative launch, the backward
+    takes the forward's mode: one split, one block per group over the
+    whole of HW, the plain launch."""
     assert norm_ops._norm_bwd_grid(64, 16, 2048, 8, 1000) == (1, 32)
     # batch 128 at the resblocks: 512 groups, 396 co-resident blocks
     assert norm_ops._norm_bwd_grid(128, 4096, 256, 8, 396) == (1, 4096)

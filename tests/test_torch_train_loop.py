@@ -229,7 +229,7 @@ def test_sigterm_leaves_a_final_resumable_snapshot(tmp_path, data_root):
     ({"num_devices": 2}, "num_devices"),
     ({"council_parallel": 2}, "council_parallel"),
     ({"det_data_reduction": True}, "det_data_reduction"),
-    ({"eval_iter": 5}, "eval_iter")])
+    ({"vgg_w": 1.0}, "vgg_w")])
 def test_loop_refuses_what_is_not_ported(tmp_path, over, what):
     cfg = Config.from_dict({**TINY, **over})
     with pytest.raises(NotImplementedError, match=what):
