@@ -66,11 +66,34 @@ Phases, in order; any failure raises and exits non-zero:
    FID's seconds (its 2048x2048 sqrtm on the host) and the hook's seconds
    per call.
 
+10. quant (run after phase 9, in its directory): W8A8 int8 serving at the
+   same width. For each ``quant_scope`` ("resblocks": the 16 resblock convs;
+   "heavy": also the two downsamples and the two upsample phase convs),
+   ``python -m councilx_torch.tools.calibrate_quant``'s ``main`` calibrates
+   member 0 of phase 4's checkpoint over phase 9's seeded testA; then
+   ``build_engine`` serves ``--quant w8a8`` and ``--quant w8a8_static
+   --calibration``: concurrent requests in full buckets, each within 1
+   uint8 level of a direct call at the same bucket, the launches per member
+   forward (Q1 16 or 20, Q2 as many, its absmax pass only per image, K1 at
+   none of them, the norms as in phase 4), engine and device-call img/s
+   beside phase 4's unquantized ones; member 0 on the card in f32 and bf16
+   against the CPU port in f32 with the same quantization
+   (:func:`quant_accuracy`: every quantized block on the CPU block's
+   input, the first quantized conv's codes, and the output beside the
+   CPU's own sensitivity to a one-ulp input change); and
+   ``councilx_torch.tools.quant_quality``'s ``compare`` against the
+   unquantized bf16 path, held to the JAX package's bar.
+
 Phase 3 also holds two inputs the kernels once refused: the norm backward
 at batch 128 (more groups than one cooperative launch holds: its plain
 launch) and the conv, dgrad and wgrad at C = 12, O = 20 (channels padded to
-multiples of 8 around the same kernels); and the eval path's kernels at
-its batch of 16 (the conv, the norm forward at its three sites, AdaIN).
+multiples of 8 around the same kernels); the eval path's kernels at
+its batch of 16 (the conv, the norm forward at its three sites, AdaIN);
+and the W8A8 kernels at phase 10's five conv sites (:func:`quant_cases`):
+Q1 (int8 conv) bit-equal in its int32 accumulator and its bf16 (and, at
+the resblock site, f32) output, Q2 (activation quantize) bit-equal in its
+codes and scales, static and per image, beside K1 and cuDNN in bf16 and
+``torch._int_mm`` on the unfolded int8 matrices.
 
 The line before the last is one JSON object describing every kernel; the
 last is ``{"ok": true, "device": {...}}``.
@@ -101,6 +124,9 @@ from councilx_torch.ops.conv3x3 import (conv3x3_dgrad,
 from councilx_torch.ops.instance_norm import (
     instance_norm, instance_norm_backward, instance_norm_backward_reference,
     instance_norm_forward_reference)
+from councilx_torch.ops.quant import (conv_int8, conv_int8_reference,
+                                      quantize_act, quantize_act_reference,
+                                      quantize_weights)
 from councilx_torch.train.trainer import CouncilTrainer
 
 # configs/soak_256_council4.yaml, the flagship serving model
@@ -158,7 +184,7 @@ REDUCED = {
 
 # every CUDA source of councilx_torch/csrc, built in phase 2
 CUDA_SOURCES = ("conv3x3", "conv3x3_wgrad", "instance_norm_fwd",
-                "instance_norm_bwd")
+                "instance_norm_bwd", "quant_act", "conv_int8")
 # kernels whose two launches on the same inputs must be bit-equal
 DETERMINISTIC = ("conv3x3_wgrad", "instance_norm", "adain",
                  "instance_norm_bwd", "adain_bwd")
@@ -187,9 +213,26 @@ EVAL_FEATURE_BATCH = 32
 EVAL_CPU_IMAGES = 4
 EVAL_HOOK_IMAGES = 16
 
+# phase 10: the W8A8 convs at full width, bucket 8, bf16 compute. Per
+# site: the unpadded block input (B, H, W, C), its pad and pad type, the
+# kernel size, stride and output channels; Q1 reads it padded (the heavy
+# upsample sites run the 3x3 phase conv to 4x the block's outputs on the
+# replicate-padded pre-upsample input)
+QUANT_SITES = {
+    "resblock": ((BATCH, 64, 64, 256), 1, "reflect", 3, 1, 256),
+    "down1": ((BATCH, 256, 256, 64), 1, "reflect", 4, 2, 128),
+    "down2": ((BATCH, 128, 128, 128), 1, "reflect", 4, 2, 256),
+    "up1": ((BATCH, 64, 64, 256), 1, "replicate", 3, 1, 512),
+    "up2": ((BATCH, 128, 128, 128), 1, "replicate", 3, 1, 256),
+}
+QUANT_SCOPES = ("resblocks", "heavy")
+# Q1 (and Q2) launches per member forward, by scope
+QUANT_PER_FWD = {"resblocks": 16, "heavy": 20}
+
 # the card's peak rates (NVIDIA H100 SXM data sheet, dense, at the full
-# 700 W): bf16 on the tensor cores, f32 on the FMA units, device memory
-PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+# 700 W): bf16 on the tensor cores, f32 on the FMA units, int8 on the
+# tensor cores, device memory
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
 CONV_KERNELS = ("conv3x3", "conv3x3_dgrad", "conv3x3_wgrad")
 # per norm kernel: f32 operations per element (counted from the plain
@@ -215,6 +258,24 @@ def kernel_work(name: str, shape, esize: int = 2):
         ops = 2 * b * h * w * 9 * c * o
         elems = b * (h + 2) * (w + 2) * c + b * h * w * o + 9 * c * o
         return ops, esize * elems, "bf16" if esize == 2 else "f32"
+    if name == "conv_int8":
+        # shape: a QUANT_SITES entry; int8 x (padded) and weight read, y
+        # written in the compute dtype, the f32 scales and bias read
+        (b, h, w, c), pad, _, k, stride, o = shape
+        hp, wp = h + 2 * pad, w + 2 * pad
+        ho, wo = (hp - k) // stride + 1, (wp - k) // stride + 1
+        ops = 2 * b * ho * wo * k * k * c * o
+        nbytes = (b * hp * wp * c + k * k * c * o + esize * b * ho * wo * o
+                  + 4 * (b + 2 * o))
+        return ops, nbytes, "int8"
+    if name in ("quant_act", "quant_act_dynamic"):
+        # x read once, the padded int8 codes and the scales written; both
+        # modes (the dynamic one's absmax pass reads x again, which the
+        # bound does not count); a few operations per element
+        (b, h, w, c), pad = shape[:2]
+        n = b * h * w * c
+        nbytes = esize * n + b * (h + 2 * pad) * (w + 2 * pad) * c + 4 * b
+        return 4 * n, nbytes, "f32"
     b, h, w, c = shape
     per_elem, full, vectors = NORM_WORK[name]
     return (per_elem * b * h * w * c,
@@ -623,11 +684,131 @@ def repaired_cases(g: torch.Generator) -> list:
     return cases
 
 
+def unfold_int8(q: torch.Tensor, k: int, stride: int) -> torch.Tensor:
+    """The (B Ho Wo, k k C) rows of the implicit GEMM over the padded int8
+    NHWC q, in the weight's (kh, kw, C) order: a copy."""
+    b, hp, wp, c = q.shape
+    ho, wo = (hp - k) // stride + 1, (wp - k) // stride + 1
+    sb, sh, sw, sc = q.stride()
+    rows = q.as_strided((b, ho, wo, k, k, c),
+                        (sb, sh * stride, sw * stride, sh, sw, sc))
+    return rows.reshape(b * ho * wo, k * k * c)
+
+
+def quant_cases(g: torch.Generator, card_str: str) -> dict:
+    """Phase 3's W8A8 kernels at phase 10's five conv sites (QUANT_SITES),
+    bf16 input as serving runs them. Both are held bit-equal to their plain
+    versions (no tolerance: integer codes and exact int32 sums, then the
+    same f32 operations in the same order):
+
+      Q2 (quant_act): the padded int8 codes (and zeros in the channels Q1's
+            16-byte rows add) and the f32 scales, static (a scale that
+            clips the top tenth, so the clip is exercised) and per image
+            (quant_act_dynamic: the absmax launch and the quantize launch);
+      Q1 (conv_int8): on the plain codes with per-image scales, the int32
+            accumulator and the bf16 output with its bias, and at the
+            resblock site the f32 output too.
+
+    Times (:func:`time_turns`, device alone): the kernel, its plain version
+    (the plain conv is a float64 cuDNN conv) and the yardsticks the port
+    never calls: for Q1 ``torch._int_mm`` on the pre-unfolded (M, K) and
+    (K, N) int8 matrices (the unfold is outside the timed call; its result
+    is checked equal to Q1's accumulator), cuDNN's bf16 ``F.conv2d`` on the
+    padded bf16 input, and K1 (conv3x3_valid) in bf16 at the 3x3 stride-1
+    sites. Q2 has no library call that computes its function."""
+    from councilx_torch.nn.blocks import pad2d
+
+    results = {}
+    dt = torch.bfloat16
+    for site, spec in QUANT_SITES.items():
+        (b, h, w, c), pad, pad_type, k, stride, o = spec
+        x = (torch.randn(b, h, w, c, device="cuda", generator=g) * 2).to(dt)
+        kern = torch.randn(k, k, c, o, device="cuda",
+                           generator=g) / (k * k * c) ** 0.5
+        bias = torch.randn(o, device="cuda", generator=g) * 0.1
+        wq = quantize_weights(kern)
+        a_static = (x.float().abs().amax() * 0.9 / 127).reshape(())
+        for name, a_scale in (("quant_act", a_static),
+                              ("quant_act_dynamic", None)):
+            got_q, got_s = quantize_act(x, pad, pad_type, a_scale)
+            want_q, want_s = quantize_act_reference(x, pad, pad_type, a_scale)
+            torch.cuda.synchronize()
+            same = (torch.equal(got_q[..., :c], want_q)
+                    and not got_q[..., c:].any()
+                    and torch.equal(got_s.reshape(-1), want_s.reshape(-1)))
+            ms, plain_ms = time_turns(
+                lambda a=a_scale: quantize_act(x, pad, pad_type, a),
+                lambda a=a_scale: quantize_act_reference(x, pad, pad_type, a))
+            bms, by = bound_ms(name, (x.shape, pad))
+            log(f"[kernels] {name} bf16 {site} {tuple(x.shape)} pad {pad} "
+                f"{pad_type}: codes and scales bit-equal {same}; kernel "
+                f"{ms:.6g} ms plain {plain_ms:.6g} ms bound {bms:.6g} ms "
+                f"({by}), {100 * bms / ms:.4g}% of it [{card_str}]")
+            if not same:
+                raise AssertionError(f"{name} {site}: differs from its plain "
+                                     f"version")
+            results[(name, site)] = {
+                "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": None, "bound_ms": bms, "bound_by": by,
+                "bound_share": bms / ms}
+
+        q, a_s = quantize_act_reference(x, pad, pad_type)
+        for out in ((torch.int32, dt, torch.float32) if site == "resblock"
+                    else (torch.int32, dt)):
+            got = conv_int8(q, wq, a_s, None if out == torch.int32 else bias,
+                            stride, out)
+            want = conv_int8_reference(q, wq, a_s, None if out == torch.int32
+                                       else bias, stride, out)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                err = (got.double() - want.double()).abs().max().item()
+                raise AssertionError(f"conv_int8 {site} {out}: differs from "
+                                     f"its plain version by {err}")
+        acc = conv_int8(q, wq, a_s, None, stride, torch.int32)
+        rows = unfold_int8(q, k, stride)
+        w_cols = wq.w8.reshape(o, -1).t()
+        mm = torch._int_mm(rows, w_cols)
+        if not torch.equal(mm.view(acc.shape), acc):
+            raise AssertionError(f"conv_int8 {site}: torch._int_mm's "
+                                 f"accumulator differs")
+        xp = pad2d(x, pad, pad_type)
+        xn = xp.permute(0, 3, 1, 2)
+        wn = kern.to(dt).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        yardsticks = [lambda: torch._int_mm(rows, w_cols),
+                      lambda: F.conv2d(xn, wn, stride=stride)]
+        if (k, stride) == (3, 1):
+            hwio = hwio_weight(kern.permute(3, 2, 0, 1), dt)
+            yardsticks.append(lambda: conv3x3_valid(xp, hwio))
+        times = time_turns(
+            lambda: conv_int8(q, wq, a_s, bias, stride, dt),
+            lambda: conv_int8_reference(q, wq, a_s, bias, stride, dt),
+            *yardsticks)
+        ms, plain_ms, int_mm_ms, cudnn_ms = times[:4]
+        k1_ms = times[4] if len(times) > 4 else None
+        bms, by = bound_ms("conv_int8", spec)
+        log(f"[kernels] conv_int8 bf16 {site} x {tuple(q.shape)} "
+            f"{k}x{k}/{stride} -> {o}: int32 accumulator and bf16 output "
+            f"bit-equal{' (and f32)' if site == 'resblock' else ''}; kernel "
+            f"{ms:.6g} ms plain {plain_ms:.6g} ms torch._int_mm "
+            f"{int_mm_ms:.6g} ms cuDNN bf16 {cudnn_ms:.6g} ms K1 bf16 "
+            f"{'n/a' if k1_ms is None else f'{k1_ms:.6g} ms'}; bound "
+            f"{bms:.6g} ms ({by}), {100 * bms / ms:.4g}% of it [{card_str}]")
+        results[("conv_int8", site)] = {
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": int_mm_ms, "bound_ms": bms, "bound_by": by,
+            "bound_share": bms / ms, "cudnn_bf16_ms": cudnn_ms,
+            "k1_bf16_ms": k1_ms}
+    return results
+
+
 COUNTERS = ((conv3x3_valid, ("launches", "grad_launches")),
             (conv3x3_dgrad, ("launches",)), (conv3x3_wgrad, ("launches",)),
             (instance_norm, ("launches", "affine_launches", "grad_launches",
                              "affine_grad_launches")),
-            (instance_norm_backward, ("launches", "affine_launches")))
+            (instance_norm_backward, ("launches", "affine_launches")),
+            (conv_int8, ("launches",)),
+            (quantize_act, ("launches", "absmax_launches")))
 
 
 def reset_counts():
@@ -738,6 +919,7 @@ def phase_serve(card_str: str, tmp: str):
             f"img/s ({n_tp} requests), device call "
             f"{float(np.median(ms)):.6g} ms = {device_ips:.6g} img/s "
             f"[{card_str}]")
+        throughput = {"engine_ips": engine_ips, "device_ips": device_ips}
         log(f"[serve] /stats {json.dumps(engine.snapshot_stats())} "
             f"[{card_str}]")
     finally:
@@ -771,7 +953,7 @@ def phase_serve(card_str: str, tmp: str):
             f"[{card_str}]")
     finally:
         engine.stop()
-    return ckpt, launches
+    return ckpt, throughput
 
 
 def phase_accuracy(ckpt: str, card_str: str, x=None, z=None,
@@ -812,6 +994,262 @@ def phase_accuracy(ckpt: str, card_str: str, x=None, z=None,
         if not (d.mean() <= tol_mean and d.max() <= tol_max):
             raise AssertionError(f"card {name} path disagrees with CPU f32 "
                                  f"at batch {len(x)}")
+
+
+def check_quant_counts(got: dict, forwards: int, scope: str, mode: str,
+                       where: str) -> None:
+    """Phase 10's launches over ``forwards`` member forwards: Q1 and Q2 at
+    every quantized conv of ``scope``, Q2's absmax pass only in the
+    per-image mode, K1 at none (every 3x3 stride-1 site is quantized), the
+    norms as unquantized, nothing under a gradient."""
+    per = QUANT_PER_FWD[scope] * forwards
+    want = {name: 0 for name in got}
+    want.update({"conv_int8.launches": per, "quantize_act.launches": per,
+                 "quantize_act.absmax_launches": per if mode == "w8a8"
+                 else 0,
+                 "instance_norm.launches": NORM_PER_FWD * forwards,
+                 "instance_norm.affine_launches": ADAIN_PER_FWD * forwards})
+    log(f"[quant] {where}: launches {json.dumps(got)} for {forwards} member "
+        f"forwards")
+    if got != want:
+        raise AssertionError(f"{where}: launches {got} != {want}")
+
+
+def _translate_with_codes(tr: Translator, gen, x, z, scope: str, stats):
+    """(output, codes): one translate call, and the codes of the first
+    quantized conv's input in it (per image, or with the calibrated static
+    scale), made on the CPU by the plain quantize."""
+    from councilx_torch.ckpt.torch_convert import quant_stat_names
+    from councilx_torch.ops.quant import div127
+
+    name = ("enc_content.model.1" if scope == "heavy"
+            else "enc_content.model.3.model.0.model.0")
+    seen = {}
+
+    def grab(module, args):     # returns None: the input goes on unchanged
+        seen["x"] = args[0].float().cpu()
+
+    hook = dict(gen.named_modules())[name].register_forward_pre_hook(grab)
+    try:
+        out = tr.translate(gen, x, z)[0].cpu().numpy()
+    finally:
+        hook.remove()
+    a_scale = None
+    if stats is not None:
+        node = stats
+        names = quant_stat_names(FLAGSHIP["gen"]["n_downsample"],
+                                 FLAGSHIP["gen"]["n_res"])
+        for key in dict((n, p) for p, n in names)[name]:
+            node = node[key]
+        a_scale = div127(torch.tensor(float(node)))
+    return out, quantize_act_reference(seen["x"], 0, "zero", a_scale)[0]
+
+
+def _to(obj, device):
+    """Tensors in nested tuples/lists moved to ``device``."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_to(o, device) for o in obj)
+    return obj
+
+
+def quant_accuracy(ckpt: str, scope: str, mode: str, stats, card_str: str):
+    """Phase 10's accuracy: member 0, 2 random images, fixed z, quantized
+    as ``mode`` in ``scope`` (``stats``: the calibration tree of the static
+    mode), the card against the port on the CPU in f32 with the same
+    quantization on the plain versions.
+
+    Quantization makes the output jump where a code flips, and at full
+    width flips cascade: one flip (an f32 summation-order difference of
+    ~1e-7 upstream that lands on a rounding boundary) moves the next
+    conv's inputs by ~1e-3 of their range, which flips many of their codes,
+    and so on through 16-20 quantized convs. The CPU path itself moves by
+    about the size of the quantization error when its input moves by one
+    ulp; the phase measures that ("noise floor") on the same images. So the
+    card is held:
+      per block, in f32: every quantized block run on the card on the
+            input the CPU block got (its AdaIN pair too) matches the CPU
+            block's output within 1e-5 of its largest value -- the same
+            codes, exact sums, then the norm's f32 sums in another order;
+      in f32: the first quantized conv's input codes in the card's own
+            pass equal the CPU's but for at most 1e-3 of them (summation
+            order only, nothing quantized upstream);
+      at the output: f32 within mean 1e-3 + 2 x the floor's mean, max
+            5e-2 + 2 x the floor's max; bf16 within phase 5's mean 2e-2
+            and max 0.25 plus the same 2 x floor (bf16 rounding is a
+            larger perturbation than one ulp; its cascade ends at the same
+            scale)."""
+    from councilx_torch.ckpt.manager import load_generator_state_dicts
+
+    quant = {"quant": mode, "quant_scope": scope}
+    cfg32 = Config.from_dict({**FLAGSHIP, **quant,
+                              "compute_dtype": "float32"})
+    sd0 = load_generator_state_dicts(ckpt, cfg32)[0]
+    rng = np.random.default_rng(1)
+    x = rng.uniform(-1, 1, (2, HW, HW, 3)).astype(np.float32)
+    z = rng.standard_normal((2, 8)).astype(np.float32)
+    tr_cpu = Translator(cfg32, quant_stats=stats, device="cpu")
+    gen_cpu = tr_cpu.load_members([sd0])[0]
+    seen = {}
+
+    def keep(name):
+        def hook(module, args, out):    # returns None: output unchanged
+            seen.setdefault(name, (args, out))
+        return hook
+
+    hooks = [m.register_forward_hook(keep(n))
+             for n, m in gen_cpu.quant_blocks().items()]
+    try:
+        ref, ref_codes = _translate_with_codes(tr_cpu, gen_cpu, x, z, scope,
+                                               stats)
+    finally:
+        for h in hooks:
+            h.remove()
+    if not np.isfinite(ref).all():
+        raise AssertionError("CPU reference: non-finite values")
+    floor = np.abs(tr_cpu.translate(gen_cpu, x * np.float32(1 + 2 ** -23),
+                                    z)[0].numpy() - ref)
+    log(f"[quant] {mode} {scope}: noise floor, the CPU's f32 output with "
+        f"its input moved by one ulp: mean abs {floor.mean():.6g} max abs "
+        f"{floor.max():.6g}")
+    for name, cfg, base_mean, base_max in (
+            ("f32", cfg32, 1e-3, 5e-2),
+            ("bf16", Config.from_dict({**FLAGSHIP, **quant}), 2e-2, 0.25)):
+        tol_mean = base_mean + 2 * float(floor.mean())
+        tol_max = base_max + 2 * float(floor.max())
+        tr = Translator(cfg, quant_stats=stats, device="cuda")
+        gen = tr.load_members([sd0])[0]
+        got, codes = _translate_with_codes(tr, gen, x, z, scope, stats)
+        if got.shape != ref.shape or not np.isfinite(got).all():
+            raise AssertionError(f"{name}: {got.shape}, non-finite values")
+        d = np.abs(got - ref)
+        extra = ""
+        if name == "f32":
+            n_flip = int((codes != ref_codes).sum())
+            blocks = gen.quant_blocks()
+            worst = 0.0
+            with torch.inference_mode():
+                for bname, (args, out) in seen.items():
+                    y = blocks[bname](*_to(args, "cuda")).float().cpu()
+                    worst = max(worst, float((y - out).abs().max())
+                                / float(out.abs().max()))
+            extra = (f"; first quantized conv: {n_flip} of {codes.numel()} "
+                     f"codes differ (tol {1e-3 * codes.numel():.6g}); each "
+                     f"of the {len(seen)} quantized blocks on the CPU "
+                     f"block's input: worst {worst:.6g} of its largest "
+                     f"value (tol 1e-5)")
+            if n_flip > 1e-3 * codes.numel() or worst > 1e-5:
+                raise AssertionError(f"{mode} {scope}: the card's quantized "
+                                     f"blocks disagree with the CPU's{extra}")
+        log(f"[quant] {mode} {scope}: card {name} vs CPU f32, member 0 at "
+            f"batch 2: mean abs {d.mean():.6g} max abs {d.max():.6g} (tol "
+            f"mean {tol_mean:.6g}, max {tol_max:.6g}){extra} [{card_str}]")
+        if not (d.mean() <= tol_mean and d.max() <= tol_max):
+            raise AssertionError(f"card {name} {mode} {scope} disagrees with "
+                                 f"the CPU")
+
+
+def phase_quant(card_str: str, tmp: str, ckpt: str, none_tp: dict) -> dict:
+    """Phase 10: W8A8 serving through the user's entry points, at full
+    width, in both scopes and both serving modes. Returns the launch
+    counts summed over the engines' request runs (each counted from 0)."""
+    import yaml
+
+    from councilx_torch.ckpt.manager import load_params_npz
+    from councilx_torch.config import load_config
+    from councilx_torch.tools import calibrate_quant, quant_quality
+
+    test_a = os.path.join(tmp, "data", "testA")    # phase 9's folders
+    rng = np.random.default_rng(10)
+    n_req = 2 * BATCH
+    images = rng.integers(0, 256, (n_req, HW, HW, 3), dtype=np.uint8)
+    seeds = [2000 + i for i in range(n_req)]
+    total = {}
+    for scope in QUANT_SCOPES:
+        cfg_path = os.path.join(tmp, f"quant_{scope}.yaml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump({**FLAGSHIP, "quant_scope": scope}, f)
+        calib = os.path.join(tmp, f"quant_stats_{scope}.npz")
+        t0 = time.perf_counter()
+        summary = calibrate_quant.main([
+            "--config", cfg_path, "--checkpoint", ckpt, "--member", "0",
+            "--input_folder", test_a, "--batch_size", str(BATCH),
+            "--num_batches", str(CLI_IMAGES // BATCH), "--num_style", "4",
+            "--out", calib])
+        log(f"[quant] {scope}: calibrate_quant over testA {summary} in "
+            f"{time.perf_counter() - t0:.6g} s [{card_str}]")
+        if summary["convs"] != QUANT_PER_FWD[scope]:
+            raise AssertionError(f"calibrated {summary['convs']} convs")
+        stats = load_params_npz(calib)
+        for mode in ("w8a8", "w8a8_static"):
+            cfg = load_config(cfg_path)
+            cfg.quant = mode
+            engine = build_engine(
+                cfg, ckpt, "0", "a2b", max_batch=BATCH, max_delay_ms=200.0,
+                calibration=calib if mode == "w8a8_static" else None,
+                warmup=True, device="cuda")
+            where = f"{mode} {scope}"
+            try:
+                reset_counts()
+                outs = submit_all(engine, images, seeds)
+                torch.cuda.synchronize()
+                got = _snapshot()
+                st = engine.snapshot_stats()
+                if st["batch_size_histogram"] != {BATCH: n_req // BATCH}:
+                    raise AssertionError(f"{where}: not full buckets {st}")
+                check_quant_counts(got, st["batches"], scope, mode, where)
+                for key, n in got.items():
+                    total[key] = total.get(key, 0) + n
+                zs = np.stack([engine.make_z(sd) for sd in seeds])
+                direct = np.concatenate([engine.translator.translate_u8io(
+                    engine.params, images[j:j + BATCH], z=zs[j:j + BATCH])
+                    for j in range(0, n_req, BATCH)])
+                worst = max(int(np.abs(o.astype(np.int16) - direct[i].astype(
+                    np.int16)).max()) for i, o in enumerate(outs))
+                if worst > 1 or any(o.shape != (HW, HW, 3) for o in outs):
+                    raise AssertionError(f"{where}: engine vs direct differs "
+                                         f"by {worst} levels")
+                n_tp = 32 * BATCH
+                for f in [engine.submit(im, seed=0)
+                          for im in images[:BATCH]]:
+                    f.result(timeout=300)
+                t0 = time.perf_counter()
+                for f in [engine.submit(im, seed=i) for i, im in
+                          enumerate(np.repeat(images[:BATCH], 32, axis=0))]:
+                    f.result(timeout=300)
+                engine_ips = n_tp / (time.perf_counter() - t0)
+                x8 = torch.from_numpy(images[:BATCH]).cuda()
+                z8 = torch.randn(BATCH, cfg.gen.style_dim).cuda()
+                ms = float(np.median(median_ms(
+                    lambda: engine.translator.translate_u8io_device(
+                        engine.params, x8, z=z8), reps=10)))
+                log(f"[quant] {where}: {n_req} requests, each within "
+                    f"{worst} uint8 level(s) of a direct call at bucket "
+                    f"{BATCH}; engine {engine_ips:.6g} img/s, device call "
+                    f"{ms:.6g} ms = {BATCH / (ms / 1e3):.6g} img/s, beside "
+                    f"quant none's {none_tp['engine_ips']:.6g} / "
+                    f"{none_tp['device_ips']:.6g} img/s (phase 4) "
+                    f"[{card_str}]")
+            finally:
+                engine.stop()
+            quant_accuracy(ckpt, scope, mode,
+                           stats if mode == "w8a8_static" else None, card_str)
+        t0 = time.perf_counter()
+        gate = quant_quality.compare(cfg_path, ckpt, 0, "a2b",
+                                     ["w8a8", "w8a8_static"],
+                                     calibration=calib, input_folder=test_a,
+                                     batch_size=BATCH,
+                                     num_batches=CLI_IMAGES // BATCH)
+        for mode, m in gate.items():
+            log(f"[quant] quality gate {scope} {json.dumps(m)} (the JAX "
+                f"package's bar: meanabs_u8 < 8, maxabs_u8 < 128, "
+                f"psnr_min_db > 20) [{card_str}]")
+            if not (m["images"] == CLI_IMAGES and m["meanabs_u8"] < 8.0
+                    and m["maxabs_u8"] < 128 and m["psnr_min_db"] > 20.0):
+                raise AssertionError(f"quality gate {scope} {mode}: {m}")
+        log(f"[quant] quality gate {scope}: {time.perf_counter() - t0:.6g} s")
+    return total
 
 
 def _finite(metrics) -> bool:
@@ -873,14 +1311,15 @@ def phase_train(card_str: str) -> dict:
     conv = TRAIN_CONV_PER_MEMBER * steps
     norm = TRAIN_NORM_PER_MEMBER * steps
     adain = TRAIN_ADAIN_PER_MEMBER * steps
-    want = {
+    want = {name: 0 for name in got}
+    want.update({
         "conv3x3_valid.launches": conv, "conv3x3_valid.grad_launches": conv,
         "conv3x3_dgrad.launches": conv, "conv3x3_wgrad.launches": conv,
         "instance_norm.launches": norm, "instance_norm.grad_launches": norm,
         "instance_norm.affine_launches": adain,
         "instance_norm.affine_grad_launches": adain,
         "instance_norm_backward.launches": norm,
-        "instance_norm_backward.affine_launches": adain}
+        "instance_norm_backward.affine_launches": adain})
     log(f"[train] launches over the timed steps {json.dumps(got)}")
     if got != want:
         raise AssertionError(f"train launches {got} != {want}")
@@ -1084,7 +1523,8 @@ def phase_train_cli(card_str: str, tmp: str, step_ips: float) -> dict:
                  + (s % CLI_CADENCE["image_display_iter"] == 0)
                  for s in range(1, end + 1))
     fwd = sheets * N_MEMBERS
-    want = {
+    want = {name: 0 for name in got}
+    want.update({
         "conv3x3_valid.launches": conv + CONV_PER_FWD * fwd,
         "conv3x3_valid.grad_launches": conv,
         "conv3x3_dgrad.launches": conv, "conv3x3_wgrad.launches": conv,
@@ -1093,7 +1533,7 @@ def phase_train_cli(card_str: str, tmp: str, step_ips: float) -> dict:
         "instance_norm.affine_launches": adain + ADAIN_PER_FWD * fwd,
         "instance_norm.affine_grad_launches": adain,
         "instance_norm_backward.launches": norm,
-        "instance_norm_backward.affine_launches": adain}
+        "instance_norm_backward.affine_launches": adain})
     log(f"[train-cli] launches over the loop's {end} steps and "
         f"{fwd} sample-sheet member forwards {json.dumps(got)}")
     if got != want:
@@ -1344,12 +1784,14 @@ def main():
 
     g = torch.Generator(device="cuda").manual_seed(0)
     kres = phase_kernels(g, card_str)
+    kres.update(quant_cases(g, card_str))
 
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        ckpt, _ = phase_serve(card_str, tmp)
+        ckpt, none_tp = phase_serve(card_str, tmp)
         phase_accuracy(ckpt, card_str)
         phase_eval(card_str, tmp, ckpt)
+        quant_launches = phase_quant(card_str, tmp, ckpt, none_tp)
     launches, step_ips = phase_train(card_str)
     phase_train_accuracy(card_str)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
@@ -1387,6 +1829,16 @@ def main():
         ("adain_bwd", "cuda", norm_bwd_src,
          "councilx/ops/pallas_norm.py:132", adain_bwd_l,
          kres[("adain_bwd", "bf16", main_shape)]),
+        ("conv_int8", "cuda", "councilx_torch/csrc/conv_int8.cu",
+         "councilx/ops/quant.py:95", quant_launches["conv_int8.launches"],
+         kres[("conv_int8", "resblock")]),
+        ("quant_act", "cuda", "councilx_torch/csrc/quant_act.cu",
+         "councilx/ops/quant.py:65", quant_launches["quantize_act.launches"],
+         kres[("quant_act", "resblock")]),
+        ("quant_act_dynamic", "cuda", "councilx_torch/csrc/quant_act.cu",
+         "councilx/ops/quant.py:56",
+         quant_launches["quantize_act.absmax_launches"],
+         kres[("quant_act_dynamic", "resblock")]),
     ]
     for e in entries:
         if e[4] < 1:

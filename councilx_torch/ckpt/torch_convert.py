@@ -10,11 +10,17 @@ inverse of ``torch_export.export_adain_gen``):
 
   Conv2d weight (O, I, kH, kW) -> flax kernel (kH, kW, I, O)
   Linear weight (O, I)         -> flax kernel (I, O)
+
+The W8A8 calibration (the JAX package's ``quant_stats`` collection, one
+``act_absmax`` per quantized conv, saved as a ``/``-keyed ``.npz``) maps to
+the port's quantized blocks by :func:`quant_stats_to_port` and back by
+:func:`port_quant_stats_to_tree`, so a calibration from either package
+serves in the other.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Sequence
+from typing import Any, Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 
@@ -75,6 +81,60 @@ def convert_adain_gen(sd: SD, n_downsample: int = 2, n_res: int = 4,
         "kernel": sd[f"mlp.model.{i}.fc.weight"].T,
         "bias": sd[f"mlp.model.{i}.fc.bias"]}} for i in range(mlp_n_blk)}
     return {"enc_content": enc, "enc_style": style, "dec": dec, "mlp": mlp}
+
+
+def quant_stat_names(n_downsample: int, n_res: int
+                     ) -> List[Tuple[Tuple[str, ...], str]]:
+    """(flax path of the ``act_absmax`` leaf, port module name) of every
+    conv the W8A8 modes may quantize, over both scopes: the encoder's
+    downsamples, both resblock stacks, the decoder's upsample convs."""
+    names = [(("enc_content", f"Conv2dBlock_{i}"), f"enc_content.model.{i}")
+             for i in range(1, 1 + n_downsample)]
+    stacks = (("enc_content", f"enc_content.model.{1 + n_downsample}"),
+              ("dec", "dec.model.0"))
+    for side, prefix in stacks:
+        names += [((side, "ResBlocks_0", f"ResBlock_{r}", f"Conv2dBlock_{j}"),
+                   f"{prefix}.model.{r}.model.{j}")
+                  for r in range(n_res) for j in (0, 1)]
+    names += [(("dec", f"Conv2dBlock_{u}"), f"dec.model.{2 + 2 * u}")
+              for u in range(n_downsample)]
+    return [(path + ("act_absmax",), name) for path, name in names]
+
+
+def quant_stats_to_port(tree: Mapping[str, Any], cfg) -> Dict[str, Any]:
+    """The JAX package's ``quant_stats`` tree (as ``load_params_npz`` reads
+    it) -> {port module name: 0-d f32 tensor} for every entry it holds."""
+    import torch
+
+    out = {}
+    for path, name in quant_stat_names(cfg.gen.n_downsample, cfg.gen.n_res):
+        node = tree
+        for key in path:
+            node = node.get(key) if isinstance(node, Mapping) else None
+        if node is not None:
+            out[name] = torch.tensor(float(np.asarray(node)),
+                                     dtype=torch.float32)
+    return out
+
+
+def port_quant_stats_to_tree(stats: Mapping[str, Any], cfg
+                             ) -> Dict[str, Any]:
+    """{port module name: absmax} (``AdaINGen.quant_stats()``) -> the JAX
+    package's ``quant_stats`` tree of float32 scalars: the inverse of
+    :func:`quant_stats_to_port`."""
+    by_name = {name: path for path, name in quant_stat_names(
+        cfg.gen.n_downsample, cfg.gen.n_res)}
+    unknown = sorted(set(stats) - set(by_name))
+    if unknown:
+        raise ValueError(f"not a quantized conv of this config: {unknown}")
+    tree: Dict[str, Any] = {}
+    for name, value in stats.items():
+        node = tree
+        path = by_name[name]
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.asarray(float(value), dtype=np.float32)
+    return tree
 
 
 def state_dicts_to_params(state_dicts: Sequence[Mapping[str, Any]], cfg

@@ -21,8 +21,12 @@ Endpoints:
     GET  /healthz                          liveness + config summary
     GET  /stats                            batching/latency counters
 
-``--data_parallel``, ``--member_parallel``, ``--quant`` and
-``--calibration`` are not ported yet and exit with an error.
+W8A8 int8 serving: ``--quant w8a8`` (per-image activation scales), or
+``--quant w8a8_static --calibration quant_stats.npz`` (scales from
+``python -m councilx_torch.tools.calibrate_quant``, or the JAX package's
+``tools/calibrate_quant.py``: the same file), quantizing the convs of the
+config's ``quant_scope``. ``--data_parallel`` and ``--member_parallel``
+are not ported yet and exit with an error.
 """
 
 import argparse
@@ -60,7 +64,8 @@ def build_engine(cfg, checkpoint: str, member, direction: str,
     """Load ``checkpoint``, build the translator on ``device`` (default: the
     card; without one this raises -- serving on the CPU takes
     ``device="cpu"``) and start a BatchingEngine serving ``member`` (an
-    index, or "all" for the council ensemble)."""
+    index, or "all" for the council ensemble). ``calibration``: the
+    ``quant_stats`` .npz of ``cfg.quant`` "w8a8_static" (one member's)."""
     from councilx_torch.ckpt.manager import load_generator_state_dicts
     from councilx_torch.inference.server import BatchingEngine
     from councilx_torch.inference.translate import Translator
@@ -69,11 +74,19 @@ def build_engine(cfg, checkpoint: str, member, direction: str,
         raise _not_ported("--data_parallel")
     if member_parallel > 1:
         raise _not_ported("--member_parallel")
-    if calibration:
-        raise _not_ported("--calibration")
-    translator = Translator(cfg, device=device)
-    state_dicts = load_generator_state_dicts(checkpoint, cfg, direction)
     all_members = member == "all"
+    quant_stats = None
+    if calibration:
+        if all_members:
+            raise SystemExit(
+                "--member all cannot use --calibration: the activation "
+                "scales are calibrated per member (calibrate_quant "
+                "--member); quantized ensemble serving would silently clip "
+                "the other members' activations")
+        from councilx_torch.ckpt.manager import load_params_npz
+        quant_stats = load_params_npz(calibration)
+    translator = Translator(cfg, quant_stats=quant_stats, device=device)
+    state_dicts = load_generator_state_dicts(checkpoint, cfg, direction)
     if all_members:
         params = translator.load_members(state_dicts)
     else:
@@ -217,13 +230,19 @@ def main(argv=None):
                    help="not ported yet")
     p.add_argument("--member_parallel", type=int, default=0,
                    help="not ported yet")
-    p.add_argument("--quant", default=None, help="not ported yet")
-    p.add_argument("--calibration", default=None, help="not ported yet")
+    p.add_argument("--quant", default=None,
+                   choices=["none", "w8a8", "w8a8_static"],
+                   help="override cfg.quant: W8A8 int8 generator convs "
+                        "(w8a8_static needs --calibration)")
+    p.add_argument("--calibration", default=None,
+                   help="quant_stats .npz from councilx_torch.tools."
+                        "calibrate_quant (required for --quant "
+                        "w8a8_static)")
     args = p.parse_args(argv)
-    if args.quant not in (None, "none"):
-        raise _not_ported("--quant")
 
     cfg = load_config(args.config)
+    if args.quant is not None:
+        cfg.quant = args.quant
     engine = build_engine(cfg, args.checkpoint, args.member, args.direction,
                           args.max_batch, args.max_delay_ms,
                           args.data_parallel, warmup=not args.no_warmup,

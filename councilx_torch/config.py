@@ -10,8 +10,9 @@ Some fields select engines of the JAX package and have no effect in the
 port, which has one engine: the kernels at the 3x3 resblock convs and the
 IN/AdaIN sites on CUDA tensors, and the plain reference ops everywhere
 else. They are parsed and validated so that a config loads unchanged:
-``use_pallas``, ``use_pallas_norm``, ``fuse_upsample``, ``boundary_engine``,
-``upsample_engine`` and ``resblock_fuse_pad``.
+``use_pallas``, ``use_pallas_norm``, ``boundary_engine``,
+``upsample_engine`` and ``resblock_fuse_pad``; ``fuse_upsample`` acts only
+under ``quant_scope: heavy``, where it picks the quantized upsample route.
 
 Reference parity: utils.py::get_config, configs/*.yaml (key schema).
 """
@@ -270,9 +271,13 @@ class Config:
     # "two_pass", see nn.blocks.norm_mean_var); the IN/AdaIN sites are
     # always two-pass. Forced to "two_pass" in parity_mode.
     norm_stats: str = "one_pass"
-    # W8A8 serving quantization: not ported yet; the port's Translator
-    # rejects anything but "none" outside parity_mode.
+    # W8A8 int8 serving quantization (ops/quant.py): "none" | "w8a8"
+    # (per-image activation scales) | "w8a8_calib" (the calibration pass,
+    # tools/calibrate_quant.py; the Translator refuses it) | "w8a8_static"
+    # (calibrated scales). Off in parity_mode.
     quant: str = "none"
+    # the convs it quantizes: "resblocks" (the 16 resblock 3x3 convs) |
+    # "heavy" (also the stride-2 downsamples and the upsample convs)
     quant_scope: str = "resblocks"
     # engine selectors of the JAX package; no effect in the port
     boundary_engine: str = "auto"
@@ -285,7 +290,11 @@ class Config:
     # its kernels at every kernel site of a CUDA tensor
     use_pallas: bool = False
     use_pallas_norm: bool = False
-    # exact upsample+conv rewrite of the JAX package; no effect in the port
+    # the JAX package's exact upsample+conv rewrite. Unquantized, the port
+    # upsamples, then convolves, either way; under quant_scope "heavy" it
+    # picks the quantized route: the phase conv on the pre-upsample input
+    # (true) or upsample, then the quantized 5x5 (false), which quantize
+    # different kernels. Off in parity_mode.
     fuse_upsample: bool = True
     # --- training, data-parallel and memory settings -------------------
     # stage step k+1's batches in a worker thread while step k runs

@@ -12,6 +12,12 @@ council); ``member=i`` picks one out of a sequence. Build them with
 
 Inputs may be numpy arrays or tensors; they are moved to the translator's
 device. Randomness is a ``torch.Generator`` (CPU), or an explicit ``z``.
+
+W8A8 serving (``cfg.quant``: "w8a8", or "w8a8_static" with the calibrated
+``quant_stats`` tree of ``councilx_torch.tools.calibrate_quant`` or the JAX
+package's tool) quantizes the convs of ``cfg.quant_scope``
+(``nn/generator.py``); each member's int8 weights are made when the
+translator takes its weights. ``parity_mode`` turns quant off.
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ from typing import List, Mapping, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from councilx_torch.ckpt.torch_convert import (quant_stat_names,
+                                              quant_stats_to_port)
 from councilx_torch.config import Config
 from councilx_torch.nn.blocks import init_parameters
 from councilx_torch.nn.generator import AdaINGen, composite_with_mask
@@ -44,22 +52,53 @@ class Translator:
     ``device``: the card unless the caller asks for another device (the
     CPU tests pass ``device="cpu"``)."""
 
-    def __init__(self, cfg: Config, device: Union[str, torch.device] = "cuda"):
-        if cfg.quant != "none" and not cfg.parity_mode:
-            raise NotImplementedError(
-                f"quant={cfg.quant!r} is not ported yet to councilx_torch; "
-                "serve with quant='none'")
+    def __init__(self, cfg: Config, quant_stats=None,
+                 device: Union[str, torch.device] = "cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
         self.focus = cfg.council.focus_enabled
         self.dtype = (torch.float32 if cfg.parity_mode
                       or cfg.compute_dtype == "float32" else torch.bfloat16)
         self.mask_activation = cfg.council.mask_activation
+        self.quant = "none" if cfg.parity_mode else cfg.quant
+        if self.quant == "w8a8_static" and quant_stats is None:
+            raise ValueError(
+                "quant='w8a8_static' needs calibrated stats: pass "
+                "quant_stats= (from councilx_torch.tools.calibrate_quant)")
+        if cfg.quant == "w8a8_calib":
+            raise ValueError(
+                "quant='w8a8_calib' is the calibration-pass mode; use "
+                "councilx_torch.tools.calibrate_quant, then serve with "
+                "quant='w8a8_static'")
+        # {port module name: absmax} of the static mode's scoped convs
+        self.quant_stats = None
+        if quant_stats is not None and self.quant == "w8a8_static":
+            self.quant_stats = quant_stats_to_port(quant_stats, cfg)
+            self._validate_quant_stats()
+
+    def _validate_quant_stats(self) -> None:
+        """Fail by name when the calibration does not cover quant_scope:
+        stats recorded under "resblocks" lack the downsample and upsample
+        convs that "heavy" quantizes. Extra entries are fine."""
+        scope = self.cfg.quant_scope
+        missing = ["/".join(path) for path, name in quant_stat_names(
+            self.cfg.gen.n_downsample, self.cfg.gen.n_res)
+            if (scope == "heavy" or "ResBlocks_0" in path)
+            and name not in self.quant_stats]
+        if missing:
+            raise ValueError(
+                f"quant_stats does not cover quant_scope='{scope}': missing "
+                f"{missing[:4]}{'...' if len(missing) > 4 else ''} "
+                f"({len(missing)} entries). Recalibrate with "
+                "councilx_torch.tools.calibrate_quant under the SAME config "
+                "(calibration scope must match serving scope).")
 
     # -- members ------------------------------------------------------------
 
-    def make_gen(self) -> AdaINGen:
-        """An AdaINGen of this config on this device (weights zero)."""
+    def make_gen(self, quant: Optional[str] = None) -> AdaINGen:
+        """An AdaINGen of this config on this device (weights zero), its
+        convs quantized as ``quant`` says (default: the translator's
+        mode; the calibration tool asks for "w8a8_calib")."""
         cfg, g = self.cfg, self.cfg.gen
         gen = AdaINGen(
             input_dim=cfg.data.input_dim_a, dim=g.dim, style_dim=g.style_dim,
@@ -68,8 +107,21 @@ class Translator:
             focus_mask=self.focus,
             ln_precision="f32" if cfg.parity_mode else cfg.in_precision,
             ln_stats="two_pass" if cfg.parity_mode else cfg.norm_stats,
-            mask_activation=self.mask_activation, device=self.device)
+            mask_activation=self.mask_activation,
+            quant=self.quant if quant is None else quant,
+            quant_scope=cfg.quant_scope,
+            fuse_upsample=cfg.fuse_upsample and not cfg.parity_mode,
+            device=self.device)
         return gen.eval().requires_grad_(False)
+
+    def _take(self, gen: AdaINGen) -> AdaINGen:
+        """A member's quantized state, made as it takes its weights: the
+        calibrated scales, and the int8 weights (a pure function of the
+        weights, so made once, not per call)."""
+        if self.quant_stats is not None:
+            gen.set_quant_stats(self.quant_stats)
+        gen.prepare_quant(self.dtype)
+        return gen
 
     def load_members(self, state_dicts: Sequence[Mapping[str, torch.Tensor]]
                      ) -> List[AdaINGen]:
@@ -78,7 +130,7 @@ class Translator:
         for sd in state_dicts:
             gen = self.make_gen()
             gen.load_state_dict(sd, strict=True)
-            gens.append(gen)
+            gens.append(self._take(gen))
         return gens
 
     def init_members(self, n: int, seed: int) -> List[AdaINGen]:
@@ -89,7 +141,7 @@ class Translator:
         for _ in range(n):
             gen = self.make_gen()
             init_parameters(gen, self.cfg.init, rng)
-            gens.append(gen)
+            gens.append(self._take(gen))
         return gens
 
     # -- helpers ------------------------------------------------------------

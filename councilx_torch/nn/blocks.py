@@ -13,8 +13,10 @@ The two kernel sites: the 3x3 stride-1 conv of the resblocks goes through
 :func:`councilx_torch.ops.conv3x3.conv3x3_valid`, and every IN/AdaIN
 through :func:`councilx_torch.ops.instance_norm.instance_norm`. Both are
 autograd Functions: on CUDA tensors they launch the Hopper kernels forward
-and backward; on CPU tensors their plain versions run. Every other op is
-the plain reference op.
+and backward; on CPU tensors their plain versions run. A block with
+``quant`` (W8A8 serving, ``ops/quant.py``) runs its conv on the int8
+kernels instead, ahead of the 3x3 site, as in the JAX package. Every other
+op is the plain reference op.
 """
 
 from __future__ import annotations
@@ -29,8 +31,11 @@ from torch import nn
 
 from councilx_torch.ops.conv3x3 import conv3x3_valid, hwio_weight
 from councilx_torch.ops.instance_norm import instance_norm
+from councilx_torch.ops.quant import (QuantWeight, conv_int8, div127,
+                                      quantize_act, quantize_weights)
 
 AdaINPair = Tuple[torch.Tensor, torch.Tensor]
+QUANT_MODES = ("none", "w8a8", "w8a8_calib", "w8a8_static")
 
 # ---------------------------------------------------------------------------
 # initializers — reference utils.py::weights_init, flax's scaling rules
@@ -358,14 +363,46 @@ class Conv2dBlock(nn.Module):
     norm: 'in' | 'ln' | 'adain' | 'none'. An 'adain' block takes its
     (gamma, beta) pair as a call argument. A 3x3 stride-1 pad-1 conv runs
     on the conv3x3 kernel; the rest on ``F.conv2d``. The activation's dtype
-    is the compute dtype."""
+    is the compute dtype.
+
+    ``quant`` (serving only; the JAX block's modes): the conv runs W8A8
+    (:func:`~councilx_torch.ops.quant.quantize_act` with the pad, then
+    :func:`~councilx_torch.ops.quant.conv_int8`, the bias in its rescale)
+    from int8 weights quantized from the f32 parameters, made once per
+    weight value. "w8a8" scales each image by its own max |x|;
+    "w8a8_calib" does so and folds the block input's max |x| into the
+    ``act_absmax`` buffer; "w8a8_static" takes ``act_absmax / 127`` (set by
+    :meth:`set_quant_stat`). The buffers are not in the state dict.
+
+    ``phase_upsample`` (a quantized 5x5 pad-2 block of the decoder): the
+    block takes the input of the nearest-2x upsample and runs
+    ``ops.upsample_conv.upsample2x_conv5x5_w8a8``, as the JAX block does
+    under ``fuse_upsample``."""
 
     def __init__(self, in_dim: int, out_dim: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, norm: str = "none",
                  activation: str = "relu", pad_type: str = "zero",
                  in_precision: str = "f32", in_stats: str = "two_pass",
+                 quant: str = "none", phase_upsample: bool = False,
                  device=None):
         super().__init__()
+        if quant not in QUANT_MODES:
+            raise ValueError(f"unknown quant: {quant}")
+        if phase_upsample and (quant == "none" or (kernel_size, stride,
+                                                   padding) != (5, 1, 2)):
+            raise ValueError("phase_upsample needs a quantized 5x5 stride-1 "
+                             "pad-2 block")
+        self.quant = quant
+        self.phase_upsample = phase_upsample
+        if quant != "none":
+            self.register_buffer("act_absmax",
+                                 torch.zeros((), device=device),
+                                 persistent=False)
+            self.register_buffer("a_scale", torch.zeros((), device=device),
+                                 persistent=False)
+        self._qweight: Optional[QuantWeight] = None
+        self._qweight_key = None
+        self._stat_set = False
         self.stride = stride
         self.padding = padding
         self.pad_type = pad_type
@@ -385,14 +422,71 @@ class Conv2dBlock(nn.Module):
         self.kernel_site = (kernel_size == 3 and stride == 1
                             and padding == 1)
 
+    def set_quant_stat(self, absmax: torch.Tensor) -> None:
+        """The calibrated max |x| of the block input (0-d), and with it the
+        static scale ``absmax / 127`` of ``quant: w8a8_static``."""
+        stat = torch.as_tensor(absmax, dtype=torch.float32).reshape(()).to(
+            self.act_absmax.device)
+        self.act_absmax = stat
+        self.a_scale = div127(stat)
+        self._stat_set = True
+
+    def quant_weight(self, dtype: torch.dtype) -> QuantWeight:
+        """The int8 weight of the quantized conv for compute ``dtype``, made
+        again only when the weight's value (its version), place or
+        ``dtype`` changed: the f32 parameters quantized, or under
+        ``phase_upsample`` the phase kernels rounded to ``dtype``."""
+        w = self.conv.weight
+        key = (dtype, w.device, w.data_ptr(), w._version)
+        if key != self._qweight_key:
+            kernel = w.detach().permute(2, 3, 1, 0)      # OIHW -> HWIO
+            if self.phase_upsample:
+                from councilx_torch.ops.upsample_conv import phase_kernels
+                kernel = phase_kernels(kernel, dtype)
+            self._qweight = quantize_weights(kernel)
+            self._qweight_key = key
+        return self._qweight
+
+    def _quant_a_scale(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """The static scale (None: per-image scales); in calib mode, this
+        call's max |x| folded into ``act_absmax`` first."""
+        if self.quant == "w8a8":
+            return None
+        if self.quant == "w8a8_calib":
+            self.act_absmax = torch.maximum(self.act_absmax,
+                                            x.float().abs().amax())
+            return None
+        if not self._stat_set:
+            raise RuntimeError("quant='w8a8_static' needs the block's "
+                               "calibrated stat (AdaINGen.set_quant_stats)")
+        return self.a_scale
+
+    def _conv_w8a8(self, x: torch.Tensor) -> torch.Tensor:
+        a_scale = self._quant_a_scale(x)
+        if self.phase_upsample:
+            from councilx_torch.ops.upsample_conv import \
+                upsample2x_conv5x5_w8a8
+            return upsample2x_conv5x5_w8a8(
+                x, self.conv.weight.permute(2, 3, 1, 0).to(x.dtype),
+                self.conv.bias, self.pad_type, a_scale,
+                self.quant_weight(x.dtype))
+        q, a_s = quantize_act(x, self.padding, self.pad_type, a_scale)
+        return conv_int8(q, self.quant_weight(x.dtype), a_s, self.conv.bias,
+                         self.stride, x.dtype)
+
     def forward(self, x: torch.Tensor,
                 adain_params: Optional[AdaINPair] = None) -> torch.Tensor:
-        x = pad2d(x, self.padding, self.pad_type)
-        b = self.conv.bias.to(x.dtype)
-        if self.kernel_site:
-            y = conv3x3_valid(x, hwio_weight(self.conv.weight, x.dtype)) + b
+        if self.quant != "none":
+            y = self._conv_w8a8(x)
         else:
-            y = _conv_nhwc(x, self.conv.weight.to(x.dtype), b, self.stride)
+            x = pad2d(x, self.padding, self.pad_type)
+            b = self.conv.bias.to(x.dtype)
+            if self.kernel_site:
+                y = conv3x3_valid(x, hwio_weight(self.conv.weight,
+                                                 x.dtype)) + b
+            else:
+                y = _conv_nhwc(x, self.conv.weight.to(x.dtype), b,
+                               self.stride)
         if self.norm_type == "in":
             y = apply_instance_norm(y)
         elif self.norm_type == "ln":
@@ -445,13 +539,13 @@ class ResBlock(nn.Module):
     in definition order."""
 
     def __init__(self, dim: int, norm: str = "in", activation: str = "relu",
-                 pad_type: str = "zero", device=None):
+                 pad_type: str = "zero", quant: str = "none", device=None):
         super().__init__()
         self.model = nn.ModuleList([
             Conv2dBlock(dim, dim, 3, 1, 1, norm=norm, activation=activation,
-                        pad_type=pad_type, device=device),
+                        pad_type=pad_type, quant=quant, device=device),
             Conv2dBlock(dim, dim, 3, 1, 1, norm=norm, activation="none",
-                        pad_type=pad_type, device=device)])
+                        pad_type=pad_type, quant=quant, device=device)])
 
     def forward(self, x: torch.Tensor,
                 adain_params: Optional[Sequence[AdaINPair]] = None
@@ -466,11 +560,11 @@ class ResBlocks(nn.Module):
 
     def __init__(self, num_blocks: int, dim: int, norm: str = "in",
                  activation: str = "relu", pad_type: str = "zero",
-                 device=None):
+                 quant: str = "none", device=None):
         super().__init__()
         self.model = nn.ModuleList([
             ResBlock(dim, norm=norm, activation=activation,
-                     pad_type=pad_type, device=device)
+                     pad_type=pad_type, quant=quant, device=device)
             for _ in range(num_blocks)])
 
     def forward(self, x: torch.Tensor,

@@ -17,11 +17,18 @@ the parameterless slots (avg pool, upsample) keep their index.
 
 With the focus mask the decoder emits RGB + 1 mask channel;
 :func:`composite_with_mask` blends ``mask * rgb + (1 - mask) * input``.
+
+W8A8 serving (``quant``, ``ops/quant.py``) quantizes the JAX package's
+``quant_scope``: "resblocks" the 16 resblock 3x3 convs; "heavy" also the
+encoder's two stride-2 downsamples and the decoder's two upsample convs
+(with ``fuse_upsample``, each a quantized phase conv on the pre-upsample
+input; without, upsample, then the quantized 5x5). The first and last 7x7
+convs, the style encoder and the MLP stay in the compute dtype.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Dict, List, Mapping, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,18 +44,22 @@ class ContentEncoder(nn.Module):
 
     def __init__(self, input_dim: int = 3, dim: int = 64,
                  n_downsample: int = 2, n_res: int = 4, activ: str = "relu",
-                 pad_type: str = "reflect", device=None):
+                 pad_type: str = "reflect", quant: str = "none",
+                 quant_scope: str = "resblocks", device=None):
         super().__init__()
         layers: List[nn.Module] = [Conv2dBlock(
             input_dim, dim, 7, 1, 3, norm="in", activation=activ,
             pad_type=pad_type, device=device)]
         for _ in range(n_downsample):
-            layers.append(Conv2dBlock(dim, 2 * dim, 4, 2, 1, norm="in",
-                                      activation=activ, pad_type=pad_type,
-                                      device=device))
+            layers.append(Conv2dBlock(
+                dim, 2 * dim, 4, 2, 1, norm="in", activation=activ,
+                pad_type=pad_type,
+                quant=quant if quant_scope == "heavy" else "none",
+                device=device))
             dim *= 2
         layers.append(ResBlocks(n_res, dim, norm="in", activation=activ,
-                                pad_type=pad_type, device=device))
+                                pad_type=pad_type, quant=quant,
+                                device=device))
         self.model = nn.ModuleList(layers)
         self.output_dim = dim
 
@@ -103,20 +114,27 @@ class Decoder(nn.Module):
                  n_res: int = 4, activ: str = "relu",
                  pad_type: str = "reflect", ln_precision: str = "f32",
                  ln_stats: str = "two_pass",
-                 mask_activation: str = "tanh_affine", device=None):
+                 mask_activation: str = "tanh_affine", quant: str = "none",
+                 quant_scope: str = "resblocks", fuse_upsample: bool = True,
+                 device=None):
         super().__init__()
         self.dim = dim
         self.n_res = n_res
         self.sigmoid_mask = (mask_activation == "sigmoid" and output_dim > 3)
+        up_quant = quant if quant_scope == "heavy" else "none"
+        # the quantized phase conv takes the upsample's input
+        self.phase_upsample = up_quant != "none" and fuse_upsample
         layers: List[nn.Module] = [ResBlocks(
             n_res, dim, norm="adain", activation=activ, pad_type=pad_type,
-            device=device)]
+            quant=quant, device=device)]
         for _ in range(n_upsample):
             layers.append(Upsample2x())
             layers.append(Conv2dBlock(dim, dim // 2, 5, 1, 2, norm="ln",
                                       activation=activ, pad_type=pad_type,
                                       in_precision=ln_precision,
-                                      in_stats=ln_stats, device=device))
+                                      in_stats=ln_stats, quant=up_quant,
+                                      phase_upsample=self.phase_upsample,
+                                      device=device))
             dim //= 2
         layers.append(Conv2dBlock(
             dim, output_dim, 7, 1, 3, norm="none",
@@ -139,6 +157,8 @@ class Decoder(nn.Module):
             pairs.append((gamma, beta))
         x = self.model[0](x, pairs)
         for layer in self.model[1:]:
+            if self.phase_upsample and isinstance(layer, Upsample2x):
+                continue
             x = layer(x)
         if self.sigmoid_mask:
             x = torch.cat([torch.tanh(x[..., :3]), x[..., 3:]], dim=-1)
@@ -150,24 +170,32 @@ class AdaINGen(nn.Module):
 
     ``ln_precision``/``ln_stats`` set the decoder's MUNIT LayerNorm (see
     MunitLayerNorm); the IN/AdaIN sites always use the instance-norm
-    kernel's numerics."""
+    kernel's numerics. ``quant``/``quant_scope``/``fuse_upsample``: the
+    W8A8 convs (module docstring); the state dict is the same in every
+    mode."""
 
     def __init__(self, input_dim: int = 3, dim: int = 64, style_dim: int = 8,
                  n_downsample: int = 2, n_res: int = 4, activ: str = "relu",
                  pad_type: str = "reflect", mlp_dim: int = 256,
                  mlp_n_blk: int = 3, focus_mask: bool = True,
                  ln_precision: str = "f32", ln_stats: str = "two_pass",
-                 mask_activation: str = "tanh_affine", device=None):
+                 mask_activation: str = "tanh_affine", quant: str = "none",
+                 quant_scope: str = "resblocks", fuse_upsample: bool = True,
+                 device=None):
         super().__init__()
+        if quant_scope not in ("resblocks", "heavy"):
+            raise ValueError(f"unknown quant_scope: {quant_scope}")
         output_dim = input_dim + (1 if focus_mask else 0)
         self.enc_content = ContentEncoder(input_dim, dim, n_downsample,
-                                          n_res, activ, pad_type, device)
+                                          n_res, activ, pad_type, quant,
+                                          quant_scope, device)
         self.enc_style = StyleEncoder(input_dim, dim, style_dim,
                                       n_downsample, activ, pad_type, device)
         content_dim = self.enc_content.output_dim
         self.dec = Decoder(content_dim, output_dim, n_downsample, n_res,
                            activ, pad_type, ln_precision, ln_stats,
-                           mask_activation, device)
+                           mask_activation, quant, quant_scope,
+                           fuse_upsample, device)
         self.mlp = MLP(style_dim, Decoder.num_adain_params(content_dim, n_res),
                        mlp_dim, mlp_n_blk, norm="none", activation=activ,
                        device=device)
@@ -192,6 +220,33 @@ class AdaINGen(nn.Module):
         """Autoencode with the image's own style."""
         content, style = self.encode(x)
         return self.decode(content, style)
+
+    def quant_blocks(self) -> Dict[str, Conv2dBlock]:
+        """The quantized conv blocks by module name (empty under quant
+        'none'), in definition order."""
+        return {name: m for name, m in self.named_modules()
+                if isinstance(m, Conv2dBlock) and m.quant != "none"}
+
+    def quant_stats(self) -> Dict[str, torch.Tensor]:
+        """Each quantized block's ``act_absmax`` (0-d f32) by name."""
+        return {name: m.act_absmax for name, m in self.quant_blocks().items()}
+
+    def set_quant_stats(self, stats: Mapping[str, torch.Tensor]) -> None:
+        """Set every quantized block's calibrated absmax from ``stats`` (by
+        module name; extra names are ignored); raise if one is missing."""
+        blocks = self.quant_blocks()
+        missing = sorted(set(blocks) - set(stats))
+        if missing:
+            raise KeyError(f"no calibrated stat for {missing}")
+        for name, m in blocks.items():
+            m.set_quant_stat(stats[name])
+
+    def prepare_quant(self, dtype: torch.dtype) -> None:
+        """Make every quantized block's int8 weight for ``dtype`` now (each
+        is made once per weight value; this keeps it out of the first
+        call)."""
+        for m in self.quant_blocks().values():
+            m.quant_weight(dtype)
 
 
 def composite_with_mask(decoded: torch.Tensor, x_in: torch.Tensor,

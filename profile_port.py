@@ -8,7 +8,11 @@ configs are ``chip_smoke.py``'s, with random weights from seed 0:
 
 1. serving: member 0 of the flagship council-4 256px bf16 model at bucket
    8, through ``Translator.translate_u8io_device`` (uint8 in and out on
-   the card), 3 warm calls, then 5 calls under ``torch.profiler``;
+   the card), 3 warm calls, then 5 calls under ``torch.profiler``; then
+   the same with W8A8 quantization: per image (``w8a8``) and static
+   (``w8a8_static``, scales calibrated over 2 batches of seeded noise by
+   ``councilx_torch.tools.calibrate_quant.calibrate``), in the
+   "resblocks" scope, and static in the "heavy" scope;
 2. training: ``CouncilTrainer.train_step`` at ``bench.py::headline_config``
    (council-4, 256px, batch 8, bf16), 3 warm steps, then 3 profiled steps.
 
@@ -36,6 +40,9 @@ from councilx_torch.train.trainer import CouncilTrainer
 
 # kernel classes, first match by substring of the kernel's name
 CLASSES = (
+    ("Q1 int8 conv (conv_int8.cu)", ("conv_int8_kernel",)),
+    ("Q2 activation quantize (quant_act.cu)", ("quant_kernel",
+                                               "absmax_kernel")),
     ("K1/K1' conv3x3 (conv3x3.cu)", ("conv3x3_bf16_kernel",
                                      "conv3x3_f32_kernel")),
     ("K2 wgrad (conv3x3_wgrad.cu)", ("wgrad_wgmma_kernel",
@@ -123,6 +130,29 @@ def profile(fn, warm: int, calls: int, label: str) -> dict:
     return summary
 
 
+def profile_quant(mode: str, scope: str, sd, x8, z8) -> dict:
+    """The serving profile with the flagship's convs quantized as ``mode``
+    in ``scope``, from the weights ``sd``."""
+    from councilx_torch.ckpt.torch_convert import port_quant_stats_to_tree
+    from councilx_torch.tools import calibrate_quant
+
+    raw = {**chip_smoke.FLAGSHIP, "quant_scope": scope}
+    stats = None
+    if mode == "w8a8_static":
+        cal = Translator(Config.from_dict(raw), device="cuda")
+        gen = cal.make_gen(quant="w8a8_calib")
+        gen.load_state_dict(sd)
+        cfg = Config.from_dict(raw)
+        stats = port_quant_stats_to_tree(calibrate_quant.calibrate(
+            cal, gen, calibrate_quant.calibration_batches(
+                cfg, None, chip_smoke.BATCH, 2, 0), 2, 0), cfg)
+    tr = Translator(Config.from_dict({**raw, "quant": mode}),
+                    quant_stats=stats, device="cuda")
+    gen = tr.load_members([sd])[0]
+    return profile(lambda: tr.translate_u8io_device(gen, x8, z=z8), 3, 5,
+                   f"serve_bucket8_{mode}_{scope}")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -145,9 +175,14 @@ def main():
     x8 = torch.from_numpy(rng.integers(0, 256, (b, hw, hw, 3),
                                        dtype=np.uint8)).cuda()
     z8 = torch.randn(b, cfg.gen.style_dim).cuda()
-    serve = profile(lambda: tr.translate_u8io_device(gen, x8, z=z8), 3, 5,
-                    "serve_bucket8")
+    serve = [profile(lambda: tr.translate_u8io_device(gen, x8, z=z8), 3, 5,
+                     "serve_bucket8")]
+    sd = gen.state_dict()
     del gen, tr
+    serve += [profile_quant(mode, scope, sd, x8, z8)
+              for mode, scope in (("w8a8", "resblocks"),
+                                  ("w8a8_static", "resblocks"),
+                                  ("w8a8_static", "heavy"))]
 
     trainer = CouncilTrainer(Config.from_dict(chip_smoke.HEADLINE),
                              device="cuda")
@@ -162,7 +197,8 @@ def main():
     train = profile(step, 3, 3, "train_step")
     if args.out:
         with open(os.path.join(args.out, "profile.json"), "w") as f:
-            json.dump({"card": card, "paths": [serve, train]}, f, indent=1)
+            json.dump({"card": card, "paths": serve + [train]}, f,
+                      indent=1)
     print(card)
 
 

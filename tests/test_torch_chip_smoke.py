@@ -43,6 +43,19 @@ CONV = (8, 64, 64, 256, 256)        # xp (8, 66, 66, 256), k (3, 3, 256, 256)
     ("adain_bwd", chip_smoke.NORM_BWD_BATCH128, 0.2406, "bytes"),
     ("conv3x3", chip_smoke.CONV_RAGGED, 0.0006422, "bytes"),
     ("conv3x3_wgrad", chip_smoke.CONV_RAGGED, 0.0006422, "bytes"),
+    # the W8A8 sites, int8 at 1,979 TOPS: the resblock conv's 38.65 G
+    # operations; down 1 moves 34.08 MB of padded int8 x and writes
+    # 33.55 MB of bf16 y; down 2 34.36 G operations; the upsample phase
+    # convs 77.31 G each
+    ("conv_int8", chip_smoke.QUANT_SITES["resblock"], 0.01953, "operations"),
+    ("conv_int8", chip_smoke.QUANT_SITES["down1"], 0.02023, "bytes"),
+    ("conv_int8", chip_smoke.QUANT_SITES["down2"], 0.01736, "operations"),
+    ("conv_int8", chip_smoke.QUANT_SITES["up1"], 0.03906, "operations"),
+    ("conv_int8", chip_smoke.QUANT_SITES["up2"], 0.03906, "operations"),
+    # Q2 at the resblock site: 16.78 MB of bf16 read, 8.92 MB of padded
+    # int8 written; the per-image mode counts x once too
+    ("quant_act", ((8, 64, 64, 256), 1), 0.007671, "bytes"),
+    ("quant_act_dynamic", ((8, 64, 64, 256), 1), 0.007671, "bytes"),
 ])
 def test_bound_matches_the_hand_arithmetic(name, shape, ms, by):
     got, got_by = chip_smoke.bound_ms(name, shape)
@@ -102,6 +115,15 @@ def test_time_norm_forward_refuses_to_run_without_a_card(monkeypatch):
      "K1/K1' conv3x3 (conv3x3.cu)"),
     ("sm90_xmma_wgrad_indexed_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_"
      "nhwc_tilesize64x256x64", "cuDNN / cuBLAS convs and matmuls"),
+    ("void (anonymous namespace)::conv_int8_kernel<1>(signed char const*, "
+     "signed char const*, float const*, int, float const*, float const*, "
+     "void*, int, int, int, int, int, int, int, int, int, int)",
+     "Q1 int8 conv (conv_int8.cu)"),
+    ("void (anonymous namespace)::quant_kernel<__nv_bfloat16>("
+     "__nv_bfloat16 const*, signed char*, float const*, float*, int, int, "
+     "int, int, int, int, int, int)", "Q2 activation quantize (quant_act.cu)"),
+    ("void (anonymous namespace)::absmax_kernel<float>(float const*, "
+     "float*, long long, int, int)", "Q2 activation quantize (quant_act.cu)"),
 ])
 def test_profile_classes_take_the_ports_kernels_before_cudnn(name, label):
     # the cuDNN class matches "conv", "wgrad" and "dgrad" substrings, so the
@@ -199,3 +221,59 @@ def test_check_eval_raises_on_a_failed_phase_9(breakage):
         return
     with pytest.raises(AssertionError):
         chip_smoke.check_eval(out, launches, 32, 16, 4)
+
+
+def test_cuda_sources_name_every_kernel_source():
+    import os
+
+    from councilx_torch.ops import _build
+
+    on_disk = {f[:-3] for f in os.listdir(_build.CSRC_DIR)
+               if f.endswith(".cu")}
+    assert set(chip_smoke.CUDA_SOURCES) == on_disk
+
+
+@pytest.mark.parametrize("k,stride", [(3, 1), (4, 2), (5, 1)])
+def test_unfold_int8_rows_times_the_weight_are_the_conv(k, stride):
+    """Phase 3's torch._int_mm yardstick computes Q1's accumulator from
+    these rows (here in int64 on the CPU against the plain conv)."""
+    from councilx_torch.ops import quant as q_ops
+
+    g = torch.Generator().manual_seed(k)
+    q = torch.randint(-127, 128, (2, 11, 9, 16), generator=g,
+                      dtype=torch.int8)
+    w = q_ops.quantize_weights(torch.randn(k, k, 16, 24, generator=g))
+    rows = chip_smoke.unfold_int8(q, k, stride)
+    acc = q_ops.conv_int8_reference(q, w, torch.ones(()), None, stride,
+                                    torch.int32)
+    got = rows.long() @ w.w8.reshape(24, -1).t().long()
+    assert torch.equal(got.view(acc.shape), acc.long())
+
+
+@pytest.mark.parametrize("scope,mode,breakage", [
+    ("resblocks", "w8a8", None), ("heavy", "w8a8_static", None),
+    ("resblocks", "w8a8", "k1"), ("heavy", "w8a8", "absmax"),
+    ("heavy", "w8a8_static", "absmax"), ("resblocks", "w8a8", "q1")])
+def test_check_quant_counts_raises_on_a_wrong_launch(scope, mode, breakage):
+    """Phase 10's launch check: Q1 and Q2 at every quantized conv, the
+    absmax pass only per image, K1 never, the norms as unquantized."""
+    fwd = 2
+    per = chip_smoke.QUANT_PER_FWD[scope] * fwd
+    got = {name: 0 for name in chip_smoke._snapshot()}
+    got.update({"conv_int8.launches": per, "quantize_act.launches": per,
+                "quantize_act.absmax_launches": per if mode == "w8a8"
+                else 0,
+                "instance_norm.launches": chip_smoke.NORM_PER_FWD * fwd,
+                "instance_norm.affine_launches":
+                    chip_smoke.ADAIN_PER_FWD * fwd})
+    if breakage == "k1":
+        got["conv3x3_valid.launches"] = 16
+    elif breakage == "absmax":
+        got["quantize_act.absmax_launches"] = 0 if mode == "w8a8" else per
+    elif breakage == "q1":
+        got["conv_int8.launches"] -= 1
+    if breakage is None:
+        chip_smoke.check_quant_counts(got, fwd, scope, mode, "test")
+        return
+    with pytest.raises(AssertionError):
+        chip_smoke.check_quant_counts(got, fwd, scope, mode, "test")

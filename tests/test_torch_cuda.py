@@ -579,3 +579,106 @@ def test_augment_on_the_card_equals_the_cpu(cuda):
     assert torch.equal(got.cpu(), want)
     assert torch.equal(augment_batch(x.to(cuda), 256, 256, train=False).cpu(),
                        augment_batch(x, 256, 256, train=False))
+
+
+# ---------------------------------------------------------------------------
+# the W8A8 kernels: Q2 (activation quantize) and Q1 (int8 conv)
+# ---------------------------------------------------------------------------
+
+
+QUANT_SHAPES = [  # x (B, H, W, C), pad, pad type, kernel, stride, O
+    ((2, 9, 11, 24), 1, "reflect", 3, 1, 20),
+    ((3, 16, 16, 64), 1, "reflect", 4, 2, 40),
+    ((2, 8, 8, 32), 1, "replicate", 3, 1, 128),
+    ((1, 5, 7, 12), 2, "zero", 5, 1, 8),
+    ((2, 64, 64, 256), 1, "reflect", 3, 1, 256),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,pad,pad_type,k,stride,o", QUANT_SHAPES)
+def test_quant_kernels_match_plain(cuda, dtype, shape, pad, pad_type, k,
+                                   stride, o):
+    """Q2's codes and scales (static and per image) and Q1's int32
+    accumulator and output are bit-equal to the plain versions."""
+    from councilx_torch.ops import quant as q_ops
+
+    g = torch.Generator(device=cuda).manual_seed(21)
+    x = (torch.randn(*shape, device=cuda, generator=g) * 2).to(dtype)
+    c = shape[-1]
+    w = q_ops.quantize_weights(torch.randn(k, k, c, o, device=cuda,
+                                           generator=g) / (k * k * c) ** 0.5)
+    bias = torch.randn(o, device=cuda, generator=g)
+    counts = (q_ops.quantize_act.launches, q_ops.quantize_act.absmax_launches,
+              q_ops.conv_int8.launches)
+    for a_scale in (None, (x.float().abs().amax() * 0.8 / 127).reshape(())):
+        q, a_s = q_ops.quantize_act(x, pad, pad_type, a_scale)
+        want_q, want_s = q_ops.quantize_act_reference(x, pad, pad_type,
+                                                      a_scale)
+        torch.cuda.synchronize()
+        assert torch.equal(q[..., :c], want_q) and not q[..., c:].any()
+        assert torch.equal(a_s.reshape(-1), want_s.reshape(-1))
+        for out in (torch.int32, dtype):
+            b = None if out == torch.int32 else bias
+            got = q_ops.conv_int8(q, w, a_s, b, stride, out)
+            want = q_ops.conv_int8_reference(want_q, w, want_s, b, stride,
+                                             out)
+            torch.cuda.synchronize()
+            assert got.dtype == out and torch.equal(got, want)
+    assert (q_ops.quantize_act.launches, q_ops.quantize_act.absmax_launches,
+            q_ops.conv_int8.launches) == (counts[0] + 2, counts[1] + 1,
+                                          counts[2] + 4)
+
+
+def test_quant_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from councilx_torch.ops import quant as q_ops
+
+    x = torch.zeros(1, 6, 6, 16, device=cuda)
+    with pytest.raises(ValueError, match="dtype|bf16"):
+        q_ops.quantize_act(x.half(), 1, "reflect")
+    with pytest.raises(ValueError, match="contiguous"):
+        q_ops.quantize_act(x.transpose(1, 2), 1, "reflect")
+    w = q_ops.quantize_weights(torch.zeros(3, 3, 16, 8, device=cuda))
+    with pytest.raises(ValueError, match="padded"):
+        q_ops.conv_int8(torch.zeros(1, 6, 6, 12, dtype=torch.int8,
+                                    device=cuda), w,
+                        torch.ones((), device=cuda))
+
+
+@pytest.mark.parametrize("mode", ["w8a8", "w8a8_static"])
+def test_quantized_translate_on_gpu_matches_cpu(cuda, mode):
+    """smoke_tiny (f32) with every heavy conv quantized: the card's Q1/Q2
+    path against the CPU's plain one, and the launches per forward."""
+    from councilx_torch.ops import quant as q_ops
+
+    raw = dict(load_config(os.path.join(REPO, "configs",
+                                        "smoke_tiny.yaml")).to_dict())
+    raw.update(quant=mode, quant_scope="heavy")
+    cfg = Config.from_dict(raw)
+    cpu = Translator(Config.from_dict({**raw, "quant": "none"}),
+                     device="cpu")
+    sds = [{k: v.cpu() for k, v in g.state_dict().items()}
+           for g in cpu.init_members(1, seed=0)]
+    stats = None
+    if mode == "w8a8_static":
+        from councilx_torch.ckpt.torch_convert import port_quant_stats_to_tree
+        from councilx_torch.tools import calibrate_quant
+        gen = cpu.make_gen(quant="w8a8_calib")
+        gen.load_state_dict(sds[0])
+        stats = port_quant_stats_to_tree(calibrate_quant.calibrate(
+            cpu, gen, calibrate_quant.calibration_batches(cfg, None, 2, 1, 0),
+            2, 0), cfg)
+    r = np.random.default_rng(0)
+    x = r.uniform(-1, 1, (3, 32, 32, 3)).astype(np.float32)
+    z = r.standard_normal((3, 3)).astype(np.float32)
+    tr_cpu = Translator(cfg, quant_stats=stats, device="cpu")
+    want = tr_cpu.translate(tr_cpu.load_members(sds)[0], x, z=z)[0]
+    gpu = Translator(cfg, quant_stats=stats, device=cuda)
+    gen = gpu.load_members(sds)[0]
+    counts = (q_ops.conv_int8.launches, conv3x3_valid.launches)
+    got = gpu.translate(gen, x, z=z)[0].cpu()
+    # 2 downsamples, 2 x 2 x 2 resblock convs, 2 upsample phase convs
+    assert q_ops.conv_int8.launches - counts[0] == 12
+    assert conv3x3_valid.launches == counts[1]
+    d = (got - want).abs()
+    assert float(d.mean()) <= 1e-3 and float(d.max()) <= 5e-2

@@ -160,17 +160,22 @@ def test_checkpoint_formats_not_ported_are_rejected(council, tmp_path):
     _, _, tr, _, _, _, _ = council
     with pytest.raises(ValueError, match="export"):
         load_generator_state_dicts(str(tmp_path / "step_00000004"), tr.cfg)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Translator(Config.from_dict({"quant": "w8a8"}))
+    # quant is ported; what the JAX Translator refuses, the port refuses:
+    # the static mode without its calibrated stats
+    with pytest.raises(ValueError, match="calibrated stats"):
+        Translator(Config.from_dict({"quant": "w8a8_static"}))
 
 
-@pytest.mark.parametrize("flag", [{"data_parallel": 2},
-                                  {"member_parallel": 2},
-                                  {"calibration": "q.npz"}])
+@pytest.mark.parametrize("flag", [
+    ({"data_parallel": 2}, "0", "not ported yet"),
+    ({"member_parallel": 2}, "0", "not ported yet"),
+    # --calibration is ported; the JAX CLI refuses it with --member all
+    ({"calibration": "q.npz"}, "all", "cannot use --calibration")])
 def test_build_engine_rejects_flags_not_ported(council, flag):
-    with pytest.raises(SystemExit, match="not ported yet"):
-        serve.build_engine(load_config(CONFIG), "unused.pt", "0", "a2b",
-                           4, 5.0, device="cpu", **flag)
+    kwargs, member, match = flag
+    with pytest.raises(SystemExit, match=match):
+        serve.build_engine(load_config(CONFIG), "unused.pt", member, "a2b",
+                           4, 5.0, device="cpu", **kwargs)
 
 
 def test_translator_defaults_to_the_card():
@@ -203,9 +208,11 @@ def test_build_engine_without_a_device_does_not_serve_on_the_cpu(
 
 
 def test_serve_cli_rejects_quant():
-    with pytest.raises(SystemExit, match="not ported yet"):
+    # --quant is ported; as the JAX CLI does, it refuses the static mode
+    # without --calibration, before it reads the checkpoint
+    with pytest.raises(ValueError, match="calibrated stats"):
         serve.main(["--config", CONFIG, "--checkpoint", "x.pt",
-                    "--quant", "w8a8"])
+                    "--quant", "w8a8_static"])
 
 
 def test_http_server_translates(council, tmp_path):
