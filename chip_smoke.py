@@ -74,8 +74,8 @@ Phases, in order; any failure raises and exits non-zero:
    ``build_engine`` serves ``--quant w8a8`` and ``--quant w8a8_static
    --calibration``: concurrent requests in full buckets, each within 1
    uint8 level of a direct call at the same bucket, the launches per member
-   forward (Q1 16 or 20, Q2 as many, its absmax pass only per image, K1 at
-   none of them, the norms as in phase 4), engine and device-call img/s
+   forward (Q1 16 or 20, Q2 as many, one launch per conv in either mode, K1
+   at none of them, the norms as in phase 4), engine and device-call img/s
    beside phase 4's unquantized ones; member 0 on the card in f32 and bf16
    against the CPU port in f32 with the same quantization
    (:func:`quant_accuracy`: every quantized block on the CPU block's
@@ -93,7 +93,8 @@ and the W8A8 kernels at phase 10's five conv sites (:func:`quant_cases`):
 Q1 (int8 conv) bit-equal in its int32 accumulator and its bf16 (and, at
 the resblock site, f32) output, Q2 (activation quantize) bit-equal in its
 codes and scales, static and per image, beside K1 and cuDNN in bf16 and
-``torch._int_mm`` on the unfolded int8 matrices.
+``torch._int_mm`` on the unfolded int8 matrices, with each wrapper's host
+time per call; and both at ragged shapes (``QUANT_RAGGED``).
 
 The line before the last is one JSON object describing every kernel; the
 last is ``{"ok": true, "device": {...}}``.
@@ -225,6 +226,17 @@ QUANT_SITES = {
     "up1": ((BATCH, 64, 64, 256), 1, "replicate", 3, 1, 512),
     "up2": ((BATCH, 128, 128, 128), 1, "replicate", 3, 1, 256),
 }
+# ragged inputs of Q1 and Q2 (bf16, both modes, every output dtype): batch
+# 1 with M under one 128-pixel tile, tiles straddling two images, both
+# strides, C in {16, 64, 128, 256}, O in {8, 24, 128, 512}
+QUANT_RAGGED = (
+    ((1, 9, 11, 16), 1, "reflect", 3, 1, 8),
+    ((3, 10, 7, 64), 1, "zero", 4, 2, 24),
+    ((2, 13, 13, 128), 1, "replicate", 3, 1, 128),
+    ((2, 20, 18, 256), 1, "reflect", 4, 2, 512),
+    ((1, 33, 35, 16), 1, "reflect", 4, 2, 24),
+    ((5, 16, 16, 64), 1, "reflect", 3, 1, 512),
+)
 QUANT_SCOPES = ("resblocks", "heavy")
 # Q1 (and Q2) launches per member forward, by scope
 QUANT_PER_FWD = {"resblocks": 16, "heavy": 20}
@@ -269,9 +281,8 @@ def kernel_work(name: str, shape, esize: int = 2):
                   + 4 * (b + 2 * o))
         return ops, nbytes, "int8"
     if name in ("quant_act", "quant_act_dynamic"):
-        # x read once, the padded int8 codes and the scales written; both
-        # modes (the dynamic one's absmax pass reads x again, which the
-        # bound does not count); a few operations per element
+        # x read once, the padded int8 codes and the scales written, in
+        # both modes; a few operations per element
         (b, h, w, c), pad = shape[:2]
         n = b * h * w * c
         nbytes = esize * n + b * (h + 2 * pad) * (w + 2 * pad) * c + 4 * b
@@ -704,7 +715,7 @@ def quant_cases(g: torch.Generator, card_str: str) -> dict:
       Q2 (quant_act): the padded int8 codes (and zeros in the channels Q1's
             16-byte rows add) and the f32 scales, static (a scale that
             clips the top tenth, so the clip is exercised) and per image
-            (quant_act_dynamic: the absmax launch and the quantize launch);
+            (quant_act_dynamic: one launch, its grid wait inside);
       Q1 (conv_int8): on the plain codes with per-image scales, the int32
             accumulator and the bf16 output with its bias, and at the
             resblock site the f32 output too.
@@ -739,18 +750,21 @@ def quant_cases(g: torch.Generator, card_str: str) -> dict:
             ms, plain_ms = time_turns(
                 lambda a=a_scale: quantize_act(x, pad, pad_type, a),
                 lambda a=a_scale: quantize_act_reference(x, pad, pad_type, a))
+            host = host_us(lambda a=a_scale: quantize_act(x, pad, pad_type,
+                                                          a))
             bms, by = bound_ms(name, (x.shape, pad))
             log(f"[kernels] {name} bf16 {site} {tuple(x.shape)} pad {pad} "
                 f"{pad_type}: codes and scales bit-equal {same}; kernel "
                 f"{ms:.6g} ms plain {plain_ms:.6g} ms bound {bms:.6g} ms "
-                f"({by}), {100 * bms / ms:.4g}% of it [{card_str}]")
+                f"({by}), {100 * bms / ms:.4g}% of it; wrapper host "
+                f"{host:.6g} us per call [{card_str}]")
             if not same:
                 raise AssertionError(f"{name} {site}: differs from its plain "
                                      f"version")
             results[(name, site)] = {
                 "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                 "library_ms": None, "bound_ms": bms, "bound_by": by,
-                "bound_share": bms / ms}
+                "bound_share": bms / ms, "host_us": host}
 
         q, a_s = quantize_act_reference(x, pad, pad_type)
         for out in ((torch.int32, dt, torch.float32) if site == "resblock"
@@ -786,6 +800,7 @@ def quant_cases(g: torch.Generator, card_str: str) -> dict:
             *yardsticks)
         ms, plain_ms, int_mm_ms, cudnn_ms = times[:4]
         k1_ms = times[4] if len(times) > 4 else None
+        host, entry = conv_int8_host_us(q, wq, a_s, bias, stride, dt)
         bms, by = bound_ms("conv_int8", spec)
         log(f"[kernels] conv_int8 bf16 {site} x {tuple(q.shape)} "
             f"{k}x{k}/{stride} -> {o}: int32 accumulator and bf16 output "
@@ -793,13 +808,79 @@ def quant_cases(g: torch.Generator, card_str: str) -> dict:
             f"{ms:.6g} ms plain {plain_ms:.6g} ms torch._int_mm "
             f"{int_mm_ms:.6g} ms cuDNN bf16 {cudnn_ms:.6g} ms K1 bf16 "
             f"{'n/a' if k1_ms is None else f'{k1_ms:.6g} ms'}; bound "
-            f"{bms:.6g} ms ({by}), {100 * bms / ms:.4g}% of it [{card_str}]")
+            f"{bms:.6g} ms ({by}), {100 * bms / ms:.4g}% of it; host per "
+            f"call: wrapper {host:.6g} us, the library's entry point alone "
+            f"(encodes and launch) {entry:.6g} us [{card_str}]")
         results[("conv_int8", site)] = {
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "library_ms": int_mm_ms, "bound_ms": bms, "bound_by": by,
             "bound_share": bms / ms, "cudnn_bf16_ms": cudnn_ms,
-            "k1_bf16_ms": k1_ms}
+            "k1_bf16_ms": k1_ms, "host_us": host, "entry_host_us": entry}
+    quant_ragged_cases(g, card_str)
     return results
+
+
+def conv_int8_host_us(q, wq, a_s, bias, stride: int, dt):
+    """Host us per call of Q1: through its wrapper, and of the kernel
+    library's entry point alone (the tensor-map encodes and the launch);
+    the rest of a wrapper call is PyTorch's."""
+    from councilx_torch.ops import quant as q_ops
+
+    wrapper = host_us(lambda: conv_int8(q, wq, a_s, bias, stride, dt))
+    b, hp, wp, cq = q.shape
+    o8, kh, kw, _ = wq.w8.shape
+    ho, wo = (hp - kh) // stride + 1, (wp - kw) // stride + 1
+    y = torch.empty(b, ho, wo, o8, dtype=dt, device=q.device)
+    bk, bn = q_ops._conv_tiles(cq, o8)
+    entry = q_ops._conv_int8_lib().councilx_conv_int8
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = host_us(lambda: entry(
+        q.data_ptr(), wq.w8.data_ptr(), a_s.data_ptr(), int(b > 1),
+        wq.w_s.data_ptr(), None, y.data_ptr(), b, hp, wp, cq, o8, kh, kw,
+        stride, ho, wo, bk, bn, 1, stream))
+    return wrapper, lib
+
+
+def quant_ragged_cases(g: torch.Generator, card_str: str) -> None:
+    """Q2 (static and per image) and Q1 (int32, bf16 and f32 out) at the
+    ragged shapes of ``QUANT_RAGGED``, bf16 input: bit-equal to their plain
+    versions, and each bit-equal over two launches."""
+    for shape, pad, pad_type, k, stride, o in QUANT_RAGGED:
+        c = shape[-1]
+        x = (torch.randn(*shape, device="cuda", generator=g) * 2).bfloat16()
+        wq = quantize_weights(torch.randn(k, k, c, o, device="cuda",
+                                          generator=g) / (k * k * c) ** 0.5)
+        bias = torch.randn(o, device="cuda", generator=g)
+        a_static = (x.float().abs().amax() * 0.8 / 127).reshape(())
+        for a_scale in (None, a_static):
+            mode = "static" if a_scale is not None else "per image"
+            q, a_s = quantize_act(x, pad, pad_type, a_scale)
+            q2, a_s2 = quantize_act(x, pad, pad_type, a_scale)
+            want_q, want_s = quantize_act_reference(x, pad, pad_type,
+                                                    a_scale)
+            torch.cuda.synchronize()
+            if not (torch.equal(q[..., :c], want_q) and not q[..., c:].any()
+                    and torch.equal(a_s.reshape(-1), want_s.reshape(-1))
+                    and torch.equal(q, q2) and torch.equal(a_s, a_s2)):
+                raise AssertionError(f"quant_act {mode} {shape} pad {pad} "
+                                     f"{pad_type}: differs from its plain "
+                                     f"version or between launches")
+            for out in (torch.int32, torch.bfloat16, torch.float32):
+                bs = None if out == torch.int32 else bias
+                got = conv_int8(q, wq, a_s, bs, stride, out)
+                again = conv_int8(q, wq, a_s, bs, stride, out)
+                want = conv_int8_reference(want_q, wq, want_s, bs, stride,
+                                           out)
+                torch.cuda.synchronize()
+                if not (torch.equal(got, want) and torch.equal(got, again)):
+                    raise AssertionError(
+                        f"conv_int8 {shape} {k}x{k}/{stride} -> {o} {out} "
+                        f"({mode} scales): differs from its plain version "
+                        f"or between launches")
+        log(f"[kernels] W8A8 ragged {shape} pad {pad} {pad_type} {k}x{k}/"
+            f"{stride} -> {o}: Q2 codes and scales (static, per image) and "
+            f"Q1 int32/bf16/f32 bit-equal to the plain versions and across "
+            f"two launches [{card_str}]")
 
 
 COUNTERS = ((conv3x3_valid, ("launches", "grad_launches")),
@@ -808,7 +889,7 @@ COUNTERS = ((conv3x3_valid, ("launches", "grad_launches")),
                              "affine_grad_launches")),
             (instance_norm_backward, ("launches", "affine_launches")),
             (conv_int8, ("launches",)),
-            (quantize_act, ("launches", "absmax_launches")))
+            (quantize_act, ("launches", "per_image_launches")))
 
 
 def reset_counts():
@@ -998,14 +1079,15 @@ def phase_accuracy(ckpt: str, card_str: str, x=None, z=None,
 
 def check_quant_counts(got: dict, forwards: int, scope: str, mode: str,
                        where: str) -> None:
-    """Phase 10's launches over ``forwards`` member forwards: Q1 and Q2 at
-    every quantized conv of ``scope``, Q2's absmax pass only in the
-    per-image mode, K1 at none (every 3x3 stride-1 site is quantized), the
-    norms as unquantized, nothing under a gradient."""
+    """Phase 10's launches over ``forwards`` member forwards: Q1 and Q2
+    once each at every quantized conv of ``scope`` (Q2 one launch in either
+    mode, all of them per image under ``w8a8``), K1 at none (every 3x3
+    stride-1 site is quantized), the norms as unquantized, nothing under a
+    gradient."""
     per = QUANT_PER_FWD[scope] * forwards
     want = {name: 0 for name in got}
     want.update({"conv_int8.launches": per, "quantize_act.launches": per,
-                 "quantize_act.absmax_launches": per if mode == "w8a8"
+                 "quantize_act.per_image_launches": per if mode == "w8a8"
                  else 0,
                  "instance_norm.launches": NORM_PER_FWD * forwards,
                  "instance_norm.affine_launches": ADAIN_PER_FWD * forwards})
@@ -1837,7 +1919,7 @@ def main():
          kres[("quant_act", "resblock")]),
         ("quant_act_dynamic", "cuda", "councilx_torch/csrc/quant_act.cu",
          "councilx/ops/quant.py:56",
-         quant_launches["quantize_act.absmax_launches"],
+         quant_launches["quantize_act.per_image_launches"],
          kres[("quant_act_dynamic", "resblock")]),
     ]
     for e in entries:

@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the TMA + wgmma kernels of this
 // directory (conv3x3.cu: the conv and its dgrad; conv3x3_wgrad.cu: its
-// weight gradient): shared-memory addresses, mbarriers, TMA loads and
-// stores, the wgmma descriptor and instruction, the stmatrix epilogue of a
-// bf16 tile, and libcuda's tensor-map encoders looked up through the
+// weight gradient; conv_int8.cu: the W8A8 int8 conv): shared-memory
+// addresses, mbarriers, TMA loads and stores, the wgmma descriptors and
+// instructions (bf16 and s8), the stmatrix epilogue of a bf16 tile, and
+// libcuda's tensor-map encoders (bf16 and int8) looked up through the
 // runtime (so no library links to libcuda).
 //
 // Each source that includes this file is built into a shared library of
@@ -125,6 +126,17 @@ __device__ __forceinline__ void tma_store_drain() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
+// Close the TMA stores issued so far into one bulk group (no wait).
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until every committed group of TMA stores has read its shared
+// memory (the buffer may be written again).
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -232,6 +244,131 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(1), "n"(TRANS_A), "n"(TRANS_B));
 }
+
+// The K-major descriptor of a tile whose K rows are ROW bytes (128 or 64)
+// with the swizzle of that span, as TMA writes a box of ROW-byte rows:
+// 8-row groups 8 * ROW bytes apart (SBO), LBO unused; advancing K by 32
+// bytes adds 32 to the start. ROW = 128 is sw128_desc's K-major layout.
+template <int ROW>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  static_assert(ROW == 128 || ROW == 64, "the 128- or 64-byte swizzle");
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>((8 * ROW) >> 4) << 32) |
+         (static_cast<uint64_t>(ROW == 128 ? 1 : 2) << 62);
+}
+
+// fence_acc for the s32 accumulators of the s8 wgmma.
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
+}
+
+// d (64 x 256, s32) += A (64 x 32) * B (32 x 256), s8 x s8, both K-major
+// from shared memory (s8 wgmma has no transpose). Exact integer sums.
+__device__ __forceinline__ void wgmma_m64n256k32_s8(int (&d)[128], uint64_t da,
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "},"
+      " %128, %129, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
+        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]),
+        "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
+        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
+        "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
+        "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]),
+        "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 128, s32) += A (64 x 32) * B (32 x 128), s8 x s8, both K-major
+// from shared memory (s8 wgmma has no transpose). Exact integer sums.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da,
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "},"
+      " %64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -358,6 +495,59 @@ inline int encode_tiled_bf16(CUtensorMap* map, const void* base, int rank,
                 static_cast<cuuint32_t>(rank), const_cast<void*>(base), dim,
                 stride, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, promotion,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
+}
+
+// The im2col map of an int8 NHWC tensor x (B, Hin, Win, C) for a VALID
+// kh x kw conv of stride `stride`: window corners over [0, Win - kw] in W
+// (H likewise), `stride` apart (the traversal stride); boxes of `pixels`
+// pixels x `channels` bytes (128 or 64: one row, swizzled by its span);
+// zero fill outside x. 0 or a CUDA error code.
+inline int encode_im2col_s8(CUtensorMap* map, const void* x, int B, int Hin,
+                            int Win, int C, int kh, int kw, int stride,
+                            int channels, int pixels) {
+  const Encoders& enc = encoders();
+  if (enc.im2col == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t c = static_cast<cuuint64_t>(C);
+  const cuuint32_t s = static_cast<cuuint32_t>(stride);
+  const cuuint32_t strides[4] = {1, s, s, 1};
+  const cuuint64_t dim[4] = {c, static_cast<cuuint64_t>(Win),
+                             static_cast<cuuint64_t>(Hin),
+                             static_cast<cuuint64_t>(B)};
+  const cuuint64_t stride_bytes[3] = {c, c * Win, c * Win * Hin};
+  const int lower[2] = {0, 0};              // W, H
+  const int upper[2] = {1 - kw, 1 - kh};
+  if (enc.im2col(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(x),
+                 dim, stride_bytes, lower, upper,
+                 static_cast<cuuint32_t>(channels),
+                 static_cast<cuuint32_t>(pixels), strides,
+                 CU_TENSOR_MAP_INTERLEAVE_NONE,
+                 channels == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : CU_TENSOR_MAP_SWIZZLE_64B,
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
+}
+
+// A tiled map of an int8 tensor of `rank` dims (innermost first, with the
+// byte strides of the outer ones) in boxes of box[] elements whose inner
+// extent (128 or 64 bytes) is swizzled by its span, zero fill outside it.
+// 0 or a CUDA error code.
+inline int encode_tiled_s8(CUtensorMap* map, const void* base, int rank,
+                           const cuuint64_t* dim, const cuuint64_t* stride,
+                           const cuuint32_t* box) {
+  const Encoders& enc = encoders();
+  if (enc.tiled == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  if (enc.tiled(map, CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                static_cast<cuuint32_t>(rank), const_cast<void*>(base), dim,
+                stride, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                box[0] == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                              : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;

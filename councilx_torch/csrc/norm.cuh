@@ -1,7 +1,9 @@
 // Building blocks shared by the instance-norm kernels of this directory
 // (instance_norm_fwd.cu: the forward; instance_norm_bwd.cu: the backward):
 // their block shape, f32 conversions of an element, VEC elements as one
-// 16-byte vector, and the device queries that size their grids.
+// 16-byte vector, and the device queries that size their grids. The W8A8
+// activation quantize (quant_act.cu) uses the conversions and the device
+// attribute query.
 //
 // Each source that includes this file is built into a shared library of
 // its own (ops/_build.py hashes every *.cuh into each library's name).

@@ -51,11 +51,14 @@ _ACT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 _PAD_TYPES = {"zero": 0, "reflect": 1, "replicate": 2}
 _MAX_INDEX = 2 ** 31 - 1     # the kernels index rows and pixels in int32
-# the dynamic absmax pass: about this many blocks over the card, each of
-# _ABSMAX_THREADS threads reading 16-byte vectors
-_ABSMAX_BLOCKS = 528
-_ABSMAX_THREADS = 256
-_ABSMAX_MAX_SPLITS = 256
+# Q2: threads per block (csrc/quant_act.cu's THREADS), channels per item,
+# and the fewest iterations a chunk of an image is given where the image
+# has them (the static mode's blocks take exactly that many)
+_QUANT_THREADS = 256
+_QUANT_GROUP = 16
+_QUANT_MIN_ITERS = 2
+# Q1: the largest kernel side and stride its tensor maps take
+_CONV_MAX_K = 8
 
 
 class QuantWeight(NamedTuple):
@@ -194,11 +197,12 @@ def quantize_act(x: torch.Tensor, padding: int = 0, pad_type: str = "zero",
     (B, 1, 1, 1) per image when ``a_scale`` is None, else ``max(a_scale,
     1e-12)`` (0-d).
 
-    On a CUDA tensor: Q2 (``csrc/quant_act.cu``), one launch static (the
-    scale read on the card: no host sync), two dynamic (a per-image absmax,
-    then the quantize); q then has C rounded up to 16 channels, zeros
-    beyond C, as Q1 takes it. ``quantize_act.launches`` counts the
-    quantize launches, ``quantize_act.absmax_launches`` the absmax ones."""
+    On a CUDA tensor: Q2 (``csrc/quant_act.cu``), one launch in either
+    mode (static: the scale read on the card, no host sync; per image: the
+    maxima and the codes in one pass over x); q then has C rounded up to 16
+    channels, zeros beyond C, as Q1 takes it. ``quantize_act.launches``
+    counts the launches, ``quantize_act.per_image_launches`` those of the
+    per-image mode."""
     _no_grad("quantize_act", x)
     if x.device.type == "cpu":
         return quantize_act_reference(x, padding, pad_type, a_scale)
@@ -227,8 +231,8 @@ def conv_int8(q: torch.Tensor, w: QuantWeight, a_s: torch.Tensor,
     bias`` in f32 cast to ``out_dtype`` (bf16 or f32; int32 returns the
     accumulator) -> (B, Ho, Wo, O).
 
-    On a CUDA tensor: Q1 (``csrc/conv_int8.cu``), one launch;
-    ``conv_int8.launches`` counts them."""
+    On a CUDA tensor: Q1 (``csrc/conv_int8.cu``, TMA + ``wgmma`` s8), one
+    launch; ``conv_int8.launches`` counts them."""
     _no_grad("conv_int8", bias)
     if q.device.type == "cpu":
         return conv_int8_reference(q, w, a_s, bias, stride, out_dtype)
@@ -242,20 +246,14 @@ def conv_int8(q: torch.Tensor, w: QuantWeight, a_s: torch.Tensor,
 
 def _quant_act_lib() -> ctypes.CDLL:
     lib = _build.load_cuda_library("quant_act")
-    fn = lib.councilx_quant_absmax
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
     fn = lib.councilx_quant_act
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [
+            ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        plan = lib.councilx_quant_act_plan
+        plan.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2
+        plan.restype = ctypes.c_int
     return lib
 
 
@@ -263,23 +261,52 @@ def _conv_int8_lib() -> ctypes.CDLL:
     lib = _build.load_cuda_library("conv_int8")
     fn = lib.councilx_conv_int8
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
 
-def _absmax_splits(b: int, n: int) -> int:
-    """Blocks per image of the absmax pass: about _ABSMAX_BLOCKS over the
-    card, none without a 16-byte vector per thread."""
-    per_block = _ABSMAX_THREADS * 8
-    return max(1, min(_ABSMAX_MAX_SPLITS, -(-_ABSMAX_BLOCKS // b),
-                      -(-n // per_block)))
+_quant_plans = {}
+
+
+def _quant_plan(device: torch.device, dtype: int, vec: int
+                ) -> Tuple[int, int]:
+    """(stash bytes per block, co-resident blocks) of Q2's (dtype, vec)
+    per-image kernel on ``device``, its stash sized for three blocks per
+    SM, asked of the runtime once."""
+    key = (device.index, dtype, vec)
+    plan = _quant_plans.get(key)
+    if plan is None:
+        stash, cap = ctypes.c_int(0), ctypes.c_int(0)
+        err = _quant_act_lib().councilx_quant_act_plan(
+            dtype, vec, ctypes.byref(stash), ctypes.byref(cap))
+        if err != 0 or cap.value < 1:
+            raise RuntimeError(f"quantize_act: occupancy query failed with "
+                               f"CUDA error {err}")
+        plan = _quant_plans[key] = (stash.value, cap.value)
+    return plan
+
+
+def _quant_split(b: int, items: int, capacity: Optional[int]
+                 ) -> Tuple[int, int]:
+    """(splits, items per split) of Q2's grid: each image's ``items`` (16
+    channels of a padded pixel each) in chunks of whole iterations of
+    _QUANT_THREADS, none empty. Per image (``capacity``: the blocks the
+    card holds at once, for the grid wait): as many chunks per image as
+    ``capacity`` allows over the batch, none shorter than _QUANT_MIN_ITERS
+    iterations where the image has them; one split, one block per image,
+    once the images alone reach ``capacity``. Static (``capacity`` None:
+    no wait, so no limit): chunks of _QUANT_MIN_ITERS iterations."""
+    iters = -(-items // _QUANT_THREADS)
+    if capacity is None:
+        want = -(-iters // _QUANT_MIN_ITERS)
+    else:
+        want = 1 if b >= capacity else min(capacity // b,
+                                           -(-iters // _QUANT_MIN_ITERS))
+    per = -(-iters // max(1, want))
+    return -(-iters // per), per * _QUANT_THREADS
 
 
 def _quantize_act_cuda(x: torch.Tensor, padding: int, pad_type: str,
@@ -289,53 +316,66 @@ def _quantize_act_cuda(x: torch.Tensor, padding: int, pad_type: str,
                          f"{tuple(x.shape)} {x.dtype}")
     if pad_type not in _PAD_TYPES:
         raise ValueError(f"quantize_act: unknown pad_type {pad_type!r}")
-    if not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError("quantize_act: x must be contiguous NHWC, 16-byte "
-                         "aligned")
+    if not x.is_contiguous():
+        raise ValueError("quantize_act: x must be contiguous NHWC")
     b, h, w, c = x.shape
     if padding < 0 or min(b, h, w, c) < 1 or (
             pad_type == "reflect" and padding >= min(h, w)):
         raise ValueError(f"quantize_act: pad {padding} ({pad_type}) of "
                          f"{tuple(x.shape)}")
-    hp, wp, cq = h + 2 * padding, w + 2 * padding, _up(c, 16)
+    hp, wp, cq = h + 2 * padding, w + 2 * padding, _up(c, _QUANT_GROUP)
     if b * hp * wp * cq > _MAX_INDEX or h * w * c > _MAX_INDEX:
         raise ValueError(f"quantize_act: {tuple(x.shape)} exceeds the "
                          f"kernel's int32 indexing")
-    q = torch.empty((b, hp, wp, cq), dtype=torch.int8, device=x.device)
     dev = x.device
+    if a_scale is not None and (a_scale.numel() != 1
+                                or a_scale.device != dev):
+        raise ValueError(f"quantize_act: a_scale must be one value on "
+                         f"{dev}, got {tuple(a_scale.shape)} on "
+                         f"{a_scale.device}")
+    q = torch.empty((b, hp, wp, cq), dtype=torch.int8, device=dev)
+    dtype = _ACT_DTYPES[x.dtype]
+    vec = int(c % _QUANT_GROUP == 0 and x.data_ptr() % 16 == 0)
+    items = hp * wp * (cq // _QUANT_GROUP)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         lib = _quant_act_lib()
+        part = None
         if a_scale is None:
-            splits = _absmax_splits(b, h * w * c)
-            partial = torch.empty((b, splits), dtype=torch.float32,
-                                  device=dev)
-            err = lib.councilx_quant_absmax(
-                x.data_ptr(), partial.data_ptr(), b, h * w * c,
-                _ACT_DTYPES[x.dtype], splits, stream)
-            if err != 0:
-                raise RuntimeError(f"quantize_act: absmax launch failed "
-                                   f"with CUDA error {err}")
-            quantize_act.absmax_launches += 1
+            stash_bytes, capacity = _quant_plan(dev, dtype, vec)
+            splits, per_split = _quant_split(b, items, capacity)
             a_s = torch.empty((b, 1, 1, 1), dtype=torch.float32, device=dev)
-            scale_in, per_image = partial.data_ptr(), splits
+            scale_in, stash = None, min(
+                per_split // _QUANT_THREADS,
+                stash_bytes // (_QUANT_THREADS * _QUANT_GROUP
+                                * x.element_size()))
+            if splits > 1:
+                part = torch.empty((b, splits), dtype=torch.float32,
+                                   device=dev)
         else:
-            if a_scale.numel() != 1 or a_scale.device != dev:
-                raise ValueError(f"quantize_act: a_scale must be one value "
-                                 f"on {dev}, got {tuple(a_scale.shape)} on "
-                                 f"{a_scale.device}")
+            splits, per_split = _quant_split(b, items, None)
             a_in = a_scale.float().contiguous()
             a_s = torch.empty((), dtype=torch.float32, device=dev)
-            scale_in, per_image = a_in.data_ptr(), 0
+            scale_in, stash = a_in.data_ptr(), 0
         err = lib.councilx_quant_act(
-            x.data_ptr(), q.data_ptr(), scale_in, a_s.data_ptr(), per_image,
-            b, h, w, c, cq, padding, _PAD_TYPES[pad_type],
-            _ACT_DTYPES[x.dtype], stream)
+            x.data_ptr(), q.data_ptr(), scale_in, a_s.data_ptr(),
+            None if part is None else part.data_ptr(), int(a_scale is None),
+            b, h, w, c, cq, padding, _PAD_TYPES[pad_type], dtype, vec,
+            splits, per_split, stash, stream)
     if err != 0:
         raise RuntimeError(f"quantize_act: launch failed with CUDA error "
                            f"{err}")
     quantize_act.launches += 1
+    quantize_act.per_image_launches += a_scale is None
     return q, a_s
+
+
+def _conv_tiles(cq: int, o8: int) -> Tuple[int, int]:
+    """(bytes of K per step, output channels per block) of Q1: 128-byte
+    steps where C is a multiple of 128, else 64 (smaller or ragged C run
+    whole steps over TMA's zero fill); 256 channels where O is above 128,
+    else 128."""
+    return (128 if cq % 128 == 0 else 64), (256 if o8 > 128 else 128)
 
 
 def _conv_int8_cuda(q: torch.Tensor, w: QuantWeight, a_s: torch.Tensor,
@@ -353,9 +393,12 @@ def _conv_int8_cuda(q: torch.Tensor, w: QuantWeight, a_s: torch.Tensor,
                          f"quantize_weights)")
     if out_dtype not in _OUT_DTYPES:
         raise ValueError(f"conv_int8: unsupported out dtype {out_dtype}")
-    if stride < 1 or hp < kh or wp < kw:
-        raise ValueError(f"conv_int8: empty output for {tuple(q.shape)}, "
-                         f"kernel {kh}x{kw}, stride {stride}")
+    if not 1 <= stride <= _CONV_MAX_K or max(kh, kw) > _CONV_MAX_K or \
+            hp < kh or wp < kw:
+        raise ValueError(f"conv_int8: {tuple(q.shape)}, kernel {kh}x{kw}, "
+                         f"stride {stride}: the kernel takes sides and "
+                         f"strides up to {_CONV_MAX_K} and a non-empty "
+                         f"output")
     ho, wo = (hp - kh) // stride + 1, (wp - kw) // stride + 1
     if b * ho * wo > _MAX_INDEX or b * hp * wp * cq > _MAX_INDEX or \
             b * ho * wo * o8 > _MAX_INDEX:
@@ -369,20 +412,26 @@ def _conv_int8_cuda(q: torch.Tensor, w: QuantWeight, a_s: torch.Tensor,
         if bias.shape != (w.out_channels,):
             raise ValueError(f"conv_int8: bias {tuple(bias.shape)} for "
                              f"{w.out_channels} outputs")
-        bias = F.pad(bias.float(), (0, o8 - w.out_channels)).contiguous()
+        # copied (padded) only where O was rounded up or the kernel cannot
+        # read it in place
+        bias = bias.float()
+        if o8 != w.out_channels or not bias.is_contiguous() or \
+                bias.data_ptr() % 16:
+            bias = F.pad(bias, (0, o8 - w.out_channels)).contiguous()
         tensors.append(bias)
     for t in tensors:
         if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"conv_int8: operands must be contiguous, "
                              f"16-byte aligned and on {q.device}")
     y = torch.empty((b, ho, wo, o8), dtype=out_dtype, device=q.device)
+    bk, bn = _conv_tiles(cq, o8)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _conv_int8_lib().councilx_conv_int8(
             q.data_ptr(), w.w8.data_ptr(), a_s.data_ptr(),
             int(a_s.numel() == b and b > 1), w.w_s.data_ptr(),
             None if bias is None else bias.data_ptr(), y.data_ptr(),
-            b, hp, wp, cq, o8, kh, kw, stride, ho, wo,
+            b, hp, wp, cq, o8, kh, kw, stride, ho, wo, bk, bn,
             _OUT_DTYPES[out_dtype], stream)
     if err != 0:
         raise RuntimeError(f"conv_int8: launch failed with CUDA error {err}")
@@ -392,5 +441,5 @@ def _conv_int8_cuda(q: torch.Tensor, w: QuantWeight, a_s: torch.Tensor,
 
 
 quantize_act.launches = 0
-quantize_act.absmax_launches = 0
+quantize_act.per_image_launches = 0
 conv_int8.launches = 0

@@ -11,8 +11,8 @@ configs are ``chip_smoke.py``'s, with random weights from seed 0:
    the card), 3 warm calls, then 5 calls under ``torch.profiler``; then
    the same with W8A8 quantization: per image (``w8a8``) and static
    (``w8a8_static``, scales calibrated over 2 batches of seeded noise by
-   ``councilx_torch.tools.calibrate_quant.calibrate``), in the
-   "resblocks" scope, and static in the "heavy" scope;
+   ``councilx_torch.tools.calibrate_quant.calibrate``), in both the
+   "resblocks" and the "heavy" scope;
 2. training: ``CouncilTrainer.train_step`` at ``bench.py::headline_config``
    (council-4, 256px, batch 8, bf16), 3 warm steps, then 3 profiled steps.
 
@@ -41,8 +41,7 @@ from councilx_torch.train.trainer import CouncilTrainer
 # kernel classes, first match by substring of the kernel's name
 CLASSES = (
     ("Q1 int8 conv (conv_int8.cu)", ("conv_int8_kernel",)),
-    ("Q2 activation quantize (quant_act.cu)", ("quant_kernel",
-                                               "absmax_kernel")),
+    ("Q2 activation quantize (quant_act.cu)", ("quant_kernel",)),
     ("K1/K1' conv3x3 (conv3x3.cu)", ("conv3x3_bf16_kernel",
                                      "conv3x3_f32_kernel")),
     ("K2 wgrad (conv3x3_wgrad.cu)", ("wgrad_wgmma_kernel",
@@ -180,9 +179,8 @@ def main():
     sd = gen.state_dict()
     del gen, tr
     serve += [profile_quant(mode, scope, sd, x8, z8)
-              for mode, scope in (("w8a8", "resblocks"),
-                                  ("w8a8_static", "resblocks"),
-                                  ("w8a8_static", "heavy"))]
+              for scope in ("resblocks", "heavy")
+              for mode in ("w8a8", "w8a8_static")]
 
     trainer = CouncilTrainer(Config.from_dict(chip_smoke.HEADLINE),
                              device="cuda")

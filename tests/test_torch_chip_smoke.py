@@ -1,6 +1,6 @@
 """chip_smoke.py's bound arithmetic, and its refusal (and
-time_norm_forward.py's) to run without a card; profile_port.py's classes
-of kernel names.
+time_norm_forward.py's and time_quant.py's) to run without a card;
+profile_port.py's classes of kernel names.
 
 chip_smoke imports only torch, numpy and councilx_torch. The least time it
 prints beside each kernel's measured time is computed from shapes alone,
@@ -15,6 +15,7 @@ import torch
 import chip_smoke
 import profile_port
 import time_norm_forward
+import time_quant
 
 CONV = (8, 64, 64, 256, 256)        # xp (8, 66, 66, 256), k (3, 3, 256, 256)
 
@@ -100,6 +101,14 @@ def test_time_norm_forward_refuses_to_run_without_a_card(monkeypatch):
         time_norm_forward.main()
 
 
+def test_time_quant_refuses_to_run_without_a_card(monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: time_quant.py would run")
+    monkeypatch.setattr("sys.argv", ["time_quant.py", "--tiles"])
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        time_quant.main()
+
+
 @pytest.mark.parametrize("name,label", [
     ("(anonymous namespace)::wgrad_wgmma_kernel(CUtensorMap_st, "
      "CUtensorMap_st, CUtensorMap_st, float*, int*, float*, int, int)",
@@ -115,15 +124,17 @@ def test_time_norm_forward_refuses_to_run_without_a_card(monkeypatch):
      "K1/K1' conv3x3 (conv3x3.cu)"),
     ("sm90_xmma_wgrad_indexed_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_"
      "nhwc_tilesize64x256x64", "cuDNN / cuBLAS convs and matmuls"),
-    ("void (anonymous namespace)::conv_int8_kernel<1>(signed char const*, "
-     "signed char const*, float const*, int, float const*, float const*, "
-     "void*, int, int, int, int, int, int, int, int, int, int)",
-     "Q1 int8 conv (conv_int8.cu)"),
-    ("void (anonymous namespace)::quant_kernel<__nv_bfloat16>("
-     "__nv_bfloat16 const*, signed char*, float const*, float*, int, int, "
+    ("void (anonymous namespace)::conv_int8_kernel<128, 256>("
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float const*, int, "
+     "float const*, float const*, void*, int, int, int, int, int, int, int, "
+     "int, int)", "Q1 int8 conv (conv_int8.cu)"),
+    ("void (anonymous namespace)::quant_kernel<__nv_bfloat16, true, 1>("
+     "__nv_bfloat16 const*, signed char*, float const*, float*, float*, "
+     "int, int, int, int, int, int, int, int, int)",
+     "Q2 activation quantize (quant_act.cu)"),
+    ("void (anonymous namespace)::quant_kernel<float, false, 0>(float "
+     "const*, signed char*, float const*, float*, float*, int, int, int, "
      "int, int, int, int, int, int)", "Q2 activation quantize (quant_act.cu)"),
-    ("void (anonymous namespace)::absmax_kernel<float>(float const*, "
-     "float*, long long, int, int)", "Q2 activation quantize (quant_act.cu)"),
 ])
 def test_profile_classes_take_the_ports_kernels_before_cudnn(name, label):
     # the cuDNN class matches "conv", "wgrad" and "dgrad" substrings, so the
@@ -252,24 +263,29 @@ def test_unfold_int8_rows_times_the_weight_are_the_conv(k, stride):
 
 @pytest.mark.parametrize("scope,mode,breakage", [
     ("resblocks", "w8a8", None), ("heavy", "w8a8_static", None),
-    ("resblocks", "w8a8", "k1"), ("heavy", "w8a8", "absmax"),
-    ("heavy", "w8a8_static", "absmax"), ("resblocks", "w8a8", "q1")])
+    ("resblocks", "w8a8", "k1"), ("heavy", "w8a8", "per_image"),
+    ("heavy", "w8a8_static", "per_image"), ("resblocks", "w8a8", "q1"),
+    ("heavy", "w8a8", "q2")])
 def test_check_quant_counts_raises_on_a_wrong_launch(scope, mode, breakage):
-    """Phase 10's launch check: Q1 and Q2 at every quantized conv, the
-    absmax pass only per image, K1 never, the norms as unquantized."""
+    """Phase 10's launch check: Q1 and Q2 once each at every quantized
+    conv (Q2 one launch in either mode, per image under w8a8), K1 never,
+    the norms as unquantized."""
     fwd = 2
     per = chip_smoke.QUANT_PER_FWD[scope] * fwd
     got = {name: 0 for name in chip_smoke._snapshot()}
     got.update({"conv_int8.launches": per, "quantize_act.launches": per,
-                "quantize_act.absmax_launches": per if mode == "w8a8"
+                "quantize_act.per_image_launches": per if mode == "w8a8"
                 else 0,
                 "instance_norm.launches": chip_smoke.NORM_PER_FWD * fwd,
                 "instance_norm.affine_launches":
                     chip_smoke.ADAIN_PER_FWD * fwd})
     if breakage == "k1":
         got["conv3x3_valid.launches"] = 16
-    elif breakage == "absmax":
-        got["quantize_act.absmax_launches"] = 0 if mode == "w8a8" else per
+    elif breakage == "per_image":
+        got["quantize_act.per_image_launches"] = 0 if mode == "w8a8" else per
+    elif breakage == "q2":
+        # a second launch per conv, as the two-launch per-image mode made
+        got["quantize_act.launches"] *= 2
     elif breakage == "q1":
         got["conv_int8.launches"] -= 1
     if breakage is None:
@@ -277,3 +293,23 @@ def test_check_quant_counts_raises_on_a_wrong_launch(scope, mode, breakage):
         return
     with pytest.raises(AssertionError):
         chip_smoke.check_quant_counts(got, fwd, scope, mode, "test")
+
+
+def test_quant_ragged_cases_cover_the_edges():
+    """Phase 3's ragged W8A8 inputs reach every edge the kernels have:
+    batch 1 with M under one 128-pixel tile, a tile over two images, both
+    strides, 64- and 128-byte K steps (C 16, 64, 128, 256), 128- and
+    256-channel tiles and two N tiles (O 8, 24, 128, 512)."""
+    ms, straddle = [], False
+    for (b, h, w, c), pad, _, k, stride, o in chip_smoke.QUANT_RAGGED:
+        ho = (h + 2 * pad - k) // stride + 1
+        wo = (w + 2 * pad - k) // stride + 1
+        ms.append((b, b * ho * wo))
+        straddle |= b > 1 and any((t * 128) // (ho * wo) != (
+            min(b * ho * wo, t * 128 + 127)) // (ho * wo)
+            for t in range(-(-b * ho * wo // 128)))
+    cases = chip_smoke.QUANT_RAGGED
+    assert any(b == 1 and m < 128 for b, m in ms) and straddle
+    assert {c[4] for c in cases} == {1, 2}
+    assert {c[0][3] for c in cases} == {16, 64, 128, 256}
+    assert {c[5] for c in cases} == {8, 24, 128, 512}

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from councilx_torch.config import Config, load_config
 from councilx_torch.inference.translate import Translator
 from councilx_torch.ops.conv3x3 import (conv3x3_dgrad,
@@ -325,16 +326,22 @@ def test_conv3x3_dgrad_launches_from_a_fresh_thread(cuda):
 
 
 def _device_kernels(fn):
-    """The names of the device kernels that one call of fn runs."""
+    """The names of the device kernels that one call of fn runs. A trace
+    with no device event at all is taken again (up to three times): the
+    profiler on the card's machine now and then drops a whole trace."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
 
 
 def test_conv3x3_wgrad_is_one_kernel(cuda):
@@ -609,8 +616,8 @@ def test_quant_kernels_match_plain(cuda, dtype, shape, pad, pad_type, k,
     w = q_ops.quantize_weights(torch.randn(k, k, c, o, device=cuda,
                                            generator=g) / (k * k * c) ** 0.5)
     bias = torch.randn(o, device=cuda, generator=g)
-    counts = (q_ops.quantize_act.launches, q_ops.quantize_act.absmax_launches,
-              q_ops.conv_int8.launches)
+    counts = (q_ops.quantize_act.launches,
+              q_ops.quantize_act.per_image_launches, q_ops.conv_int8.launches)
     for a_scale in (None, (x.float().abs().amax() * 0.8 / 127).reshape(())):
         q, a_s = q_ops.quantize_act(x, pad, pad_type, a_scale)
         want_q, want_s = q_ops.quantize_act_reference(x, pad, pad_type,
@@ -625,9 +632,71 @@ def test_quant_kernels_match_plain(cuda, dtype, shape, pad, pad_type, k,
                                              out)
             torch.cuda.synchronize()
             assert got.dtype == out and torch.equal(got, want)
-    assert (q_ops.quantize_act.launches, q_ops.quantize_act.absmax_launches,
+    assert (q_ops.quantize_act.launches,
+            q_ops.quantize_act.per_image_launches,
             q_ops.conv_int8.launches) == (counts[0] + 2, counts[1] + 1,
                                           counts[2] + 4)
+
+
+# ragged cases of the TMA + wgmma Q1 and the one-pass Q2: chip_smoke.py's
+# (batch 1 with M under one 128-pixel tile; tiles that straddle two images,
+# per-image scales; both strides; C in {16, 64, 128, 256}; O in {8, 24,
+# 128, 512}), and Q2's grid wait over 4 images with Q1's 128-channel tile
+@pytest.mark.parametrize("shape,pad,pad_type,k,stride,o",
+                         chip_smoke.QUANT_RAGGED + (
+                             ((4, 32, 32, 128), 1, "replicate", 3, 1, 8),))
+def test_quant_kernels_at_ragged_shapes(cuda, shape, pad, pad_type, k,
+                                        stride, o):
+    """Q2 (both modes) and Q1 (int32, bf16 and f32 out) bit-equal to their
+    plain versions at the ragged shapes, and each bit-equal over two
+    launches."""
+    from councilx_torch.ops import quant as q_ops
+
+    g = torch.Generator(device=cuda).manual_seed(sum(shape) + k + o)
+    x = (torch.randn(*shape, device=cuda, generator=g) * 2).bfloat16()
+    c = shape[-1]
+    w = q_ops.quantize_weights(torch.randn(k, k, c, o, device=cuda,
+                                           generator=g) / (k * k * c) ** 0.5)
+    bias = torch.randn(o, device=cuda, generator=g)
+    for a_scale in (None, (x.float().abs().amax() * 0.8 / 127).reshape(())):
+        q, a_s = q_ops.quantize_act(x, pad, pad_type, a_scale)
+        q2, a_s2 = q_ops.quantize_act(x, pad, pad_type, a_scale)
+        want_q, want_s = q_ops.quantize_act_reference(x, pad, pad_type,
+                                                      a_scale)
+        torch.cuda.synchronize()
+        assert torch.equal(q[..., :c], want_q) and not q[..., c:].any()
+        assert torch.equal(a_s.reshape(-1), want_s.reshape(-1))
+        assert torch.equal(q, q2) and torch.equal(a_s, a_s2)
+        for out in (torch.int32, torch.bfloat16, torch.float32):
+            b = None if out == torch.int32 else bias
+            got = q_ops.conv_int8(q, w, a_s, b, stride, out)
+            again = q_ops.conv_int8(q, w, a_s, b, stride, out)
+            want = q_ops.conv_int8_reference(want_q, w, want_s, b, stride,
+                                             out)
+            torch.cuda.synchronize()
+            assert got.dtype == out and torch.equal(got, want), (a_scale,
+                                                                 out)
+            assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("shape", [(1, 64, 64, 256), (8, 64, 64, 256),
+                                   (64, 16, 16, 64)])
+def test_quantize_act_per_image_is_one_kernel(cuda, shape):
+    """Q2's per-image mode is one device kernel (its grid wait inside),
+    at bucket 1, 8 and 64; so is Q1, with an f32 bias of O channels too
+    (no copy of it)."""
+    from councilx_torch.ops import quant as q_ops
+
+    x = torch.randn(*shape, device=cuda).bfloat16()
+    names = _device_kernels(lambda: q_ops.quantize_act(x, 1, "reflect"))
+    assert len(names) == 1 and "quant_kernel" in names[0], names
+    q, a_s = q_ops.quantize_act(x, 1, "reflect")
+    w = q_ops.quantize_weights(torch.randn(3, 3, shape[-1], 64,
+                                           device=cuda))
+    bias = torch.randn(64, device=cuda)
+    for bs in (None, bias):
+        names = _device_kernels(lambda: q_ops.conv_int8(q, w, a_s, bs))
+        assert len(names) == 1 and "conv_int8_kernel" in names[0], names
 
 
 def test_quant_wrappers_reject_what_the_kernels_do_not_take(cuda):
