@@ -83,6 +83,25 @@ Phases, in order; any failure raises and exits non-zero:
    CPU's own sensitivity to a one-ulp input change); and
    ``councilx_torch.tools.quant_quality``'s ``compare`` against the
    unquantized bf16 path, held to the JAX package's bar.
+11. multi-gpu (``[multi-gpu]``, last): the ``councilx_torch.parallel``
+   layouts. In a real NCCL process group of one rank on ``cuda:0``
+   (``file://`` store under ``build/``), ``DataParallelTrainer`` and
+   ``CouncilShardTrainer`` (D = 1, K = 1) each take 2 train steps at the
+   headline config (cuDNN in its deterministic mode for the phase), bit for
+   bit ``CouncilTrainer``'s from the same weights, batch and z (every
+   parameter, buffer, Adam moment and metric), with phase 6's launch
+   invariants and each one's ms per step beside ``CouncilTrainer``'s. Then
+   the flagship serving model over several devices, each layout
+   bit-equal to the one-device calls at the same per-shard bucket and
+   timed through the engine (img/s): ``ShardedTranslator`` at D = 2 in
+   ``quant: none`` and ``w8a8_static`` (Q1 and Q2 launched on this path),
+   ``MemberShardedTranslator`` at K = 2 and K = 4; over distinct cards
+   where the machine has them, else over ``cuda:0`` named D or K times.
+   With 2 or more cards, ``MULTI_LAYOUTS`` (D = 2, K = 2; with 4 cards
+   also D = 2 x K = 2 and K = 4) run as spawned NCCL ranks, 2 headline
+   steps each against the one-process step on ``cuda:0`` at the CPU tests'
+   data-parallel tolerance, with img/s; the ``[multi-gpu]`` line names the
+   layouts run and the ones this machine has too few cards for.
 
 Phase 3 also holds two inputs the kernels once refused: the norm backward
 at batch 128 (more groups than one cooperative launch holds: its plain
@@ -111,9 +130,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from councilx_torch.ckpt.torch_convert import port_quant_stats_to_tree
 from councilx_torch.cli.serve import build_engine
 from councilx_torch.config import Config
-from councilx_torch.inference.translate import Translator, _u8_from_unit
+from councilx_torch.inference.server import BatchingEngine
+from councilx_torch.inference.translate import (MemberShardedTranslator,
+                                                ShardedTranslator,
+                                                Translator, _u8_from_unit)
 from councilx_torch.ops import _build
 from councilx_torch.ops import conv3x3 as conv_ops
 from councilx_torch.ops import instance_norm as norm_ops
@@ -128,6 +154,11 @@ from councilx_torch.ops.instance_norm import (
 from councilx_torch.ops.quant import (conv_int8, conv_int8_reference,
                                       quantize_act, quantize_act_reference,
                                       quantize_weights)
+from councilx_torch.parallel.council_shard import CouncilShardTrainer
+from councilx_torch.parallel.mesh import (DataParallelTrainer,
+                                          make_member_mesh, make_mesh)
+from councilx_torch.tools.calibrate_quant import calibrate
+from councilx_torch.train.loop import make_trainer
 from councilx_torch.train.trainer import CouncilTrainer
 
 # configs/soak_256_council4.yaml, the flagship serving model
@@ -182,6 +213,20 @@ REDUCED = {
     "new_size": 64, "crop_image_height": 64, "crop_image_width": 64,
 }
 
+
+# phase 11: the spawned NCCL layouts (name, ranks, council_parallel), run
+# where the machine has the ranks' cards; their steps and tolerances (the
+# CPU tests' data-parallel ones: tests/test_torch_parallel_train.py)
+MULTI_LAYOUTS = (("D=2", 2, 1), ("K=2", 2, 2), ("D=2xK=2", 4, 2),
+                 ("K=4", 4, 4))
+MULTI_STEPS = 2
+# phase 11's world-1 trainers: steps timed after the MULTI_STEPS checked
+MULTI_TIMED = 4
+MULTI_RTOL, MULTI_ATOL, MULTI_PARAM_TOL = 2e-3, 1e-4, 5e-4
+# phase 11's serving layouts: (name, data shards, member shards)
+SERVE_LAYOUTS = (("ShardedTranslator D=2", 2, 1),
+                 ("MemberShardedTranslator K=2", 1, 2),
+                 ("MemberShardedTranslator K=4", 1, 4))
 
 # every CUDA source of councilx_torch/csrc, built in phase 2
 CUDA_SOURCES = ("conv3x3", "conv3x3_wgrad", "instance_norm_fwd",
@@ -1387,12 +1432,19 @@ def phase_train(card_str: str) -> dict:
         f"{[round(float(m['loss_dis_adv']), 6) for m in series]}; last "
         f"step {json.dumps({k: float(v) for k, v in series[-1].items()})} "
         f"[{card_str}]")
-    # launch invariants: every kernel site ran under autograd, and every
-    # forward under autograd had its backward
-    steps = TIMED_STEPS * N_MEMBERS
-    conv = TRAIN_CONV_PER_MEMBER * steps
-    norm = TRAIN_NORM_PER_MEMBER * steps
-    adain = TRAIN_ADAIN_PER_MEMBER * steps
+    log(f"[train] launches over the timed steps {json.dumps(got)}")
+    check_train_launches(got, TIMED_STEPS, "train")
+    return got, BATCH * TIMED_STEPS / seconds
+
+
+def check_train_launches(got: dict, steps: int, where: str) -> None:
+    """The launch invariants of ``steps`` headline train steps: every
+    kernel site ran under autograd, and every forward under autograd had
+    its backward (conv fwd = dgrad = wgrad, norm fwd = bwd)."""
+    forwards = steps * N_MEMBERS
+    conv = TRAIN_CONV_PER_MEMBER * forwards
+    norm = TRAIN_NORM_PER_MEMBER * forwards
+    adain = TRAIN_ADAIN_PER_MEMBER * forwards
     want = {name: 0 for name in got}
     want.update({
         "conv3x3_valid.launches": conv, "conv3x3_valid.grad_launches": conv,
@@ -1402,10 +1454,8 @@ def phase_train(card_str: str) -> dict:
         "instance_norm.affine_grad_launches": adain,
         "instance_norm_backward.launches": norm,
         "instance_norm_backward.affine_launches": adain})
-    log(f"[train] launches over the timed steps {json.dumps(got)}")
     if got != want:
-        raise AssertionError(f"train launches {got} != {want}")
-    return got, BATCH * TIMED_STEPS / seconds
+        raise AssertionError(f"{where} launches {got} != {want}")
 
 
 def phase_train_accuracy(card_str: str):
@@ -1849,6 +1899,329 @@ def phase_eval(card_str: str, tmp: str, ckpt: str) -> dict:
     return got
 
 
+def headline_batch(device) -> tuple:
+    """Phase 11's global headline batch (seeded), on ``device``."""
+    rng = np.random.default_rng(11)
+    return tuple(torch.from_numpy(rng.uniform(-1, 1, (BATCH, HW, HW, 3))
+                                  .astype(np.float32)).to(device)
+                 for _ in range(2))
+
+
+def host_steps(trainer, state, x_a, x_b, steps: int):
+    """``steps`` train steps -> (state, host metrics per step, ms per step
+    by the host clock around each synchronized step)."""
+    metrics, ms = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = trainer.train_step(state, x_a, x_b)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return state, metrics, ms
+
+
+def payload_diff(a, b, where="") -> list:
+    """Where two snapshot payloads differ (bitwise)."""
+    if isinstance(a, dict):
+        if sorted(a) != sorted(b):
+            return [where]
+        return [w for k in a for w in payload_diff(a[k], b[k],
+                                                   f"{where}/{k}")]
+    if isinstance(a, list):
+        if len(a) != len(b):
+            return [where]
+        return [w for i, (u, v) in enumerate(zip(a, b))
+                for w in payload_diff(u, v, f"{where}/{i}")]
+    if isinstance(a, torch.Tensor):
+        return [] if torch.equal(a, b) else [where]
+    return [] if a == b else [where]
+
+
+def max_param_diff(got: dict, want: dict, off: int) -> float:
+    """Largest |got - want| over the parameters of the members that
+    ``got`` ({direction: {group: [state dicts]}}, the members from ``off``)
+    holds, against ``want`` (all members)."""
+    worst = 0.0
+    for d, groups in got.items():
+        for grp, sds in groups.items():
+            for i, sd in enumerate(sds):
+                ref = want[d][grp][off + i]
+                worst = max([worst] + [float((v.float() - ref[k].float())
+                                             .abs().max())
+                                       for k, v in sd.items()])
+    return worst
+
+
+def multi_train_world1(card_str: str, ref_path: str) -> list:
+    """Phase 11's training: CouncilTrainer, then DataParallelTrainer and
+    CouncilShardTrainer (D = 1, K = 1) in the NCCL group of one rank, 2
+    steps each, bit-equal, then MULTI_TIMED more whose median ms per step
+    is printed; saves the reference's first step (params and both steps'
+    metrics) to ``ref_path`` for the spawned layouts."""
+    cfg = Config.from_dict(HEADLINE)
+    x_a, x_b = headline_batch("cuda")
+    ref = None
+    runs = []
+    for name, make in (
+            ("CouncilTrainer", lambda: CouncilTrainer(cfg, device="cuda")),
+            ("DataParallelTrainer", lambda: DataParallelTrainer(
+                cfg, make_mesh(1), device="cuda")),
+            ("CouncilShardTrainer", lambda: CouncilShardTrainer(
+                cfg, make_mesh(1, always_2d=True), device="cuda"))):
+        trainer = make()
+        state = trainer.init_state(seed=0)
+        reset_counts()
+        state, first, ms1 = host_steps(trainer, state, x_a, x_b, 1)
+        if ref is None:
+            torch.save({"params": state.state_dicts()}, ref_path)
+        state, second, ms2 = host_steps(trainer, state, x_a, x_b,
+                                        MULTI_STEPS - 1)
+        check_train_launches(_snapshot(), MULTI_STEPS, name)
+        metrics = first + second
+        if not all(np.isfinite(list(m.values())).all() for m in metrics):
+            raise AssertionError(f"{name}: non-finite metrics {metrics}")
+        payload = trainer.snapshot(state)
+        state, _, timed = host_steps(trainer, state, x_a, x_b, MULTI_TIMED)
+        del trainer, state
+        torch.cuda.empty_cache()
+        if ref is None:
+            ref = {"payload": payload, "metrics": metrics}
+            torch.save({**torch.load(ref_path, weights_only=True),
+                        "metrics": metrics}, ref_path)
+        else:
+            bad = payload_diff(payload, ref["payload"])
+            if bad or metrics != ref["metrics"]:
+                raise AssertionError(
+                    f"{name} (NCCL world 1) is not CouncilTrainer's step: "
+                    f"{len(bad)} tensors differ {bad[:4]}; metrics equal "
+                    f"{metrics == ref['metrics']}")
+        runs.append((name, float(np.median(timed))))
+        log(f"[multi-gpu] {name}: {MULTI_STEPS} headline steps"
+            + ("" if name == "CouncilTrainer" else
+               ", parameters, buffers, Adam moments and metrics bit-equal "
+               "to CouncilTrainer's")
+            + ", launch invariants held; ms per step "
+            f"{[round(v, 6) for v in ms1 + ms2]}, then {MULTI_TIMED} "
+            f"more: median {np.median(timed):.6g} ms "
+            f"(min {min(timed):.6g}, max {max(timed):.6g}) [{card_str}]")
+    return runs
+
+
+def serving_devices(n: int) -> list:
+    """The first n cards, or cuda:0 named n times on a smaller machine."""
+    if torch.cuda.device_count() >= n:
+        return [torch.device("cuda", i) for i in range(n)]
+    return [torch.device("cuda", 0)] * n
+
+
+def engine_ips(engine, images, reps: int) -> float:
+    """Requests per second through ``engine``: one warm round of
+    ``images``, then ``reps`` rounds."""
+    for f in [engine.submit(im, seed=0) for im in images]:
+        f.result(timeout=300)
+    t0 = time.perf_counter()
+    futures = [engine.submit(im, seed=i)
+               for i, im in enumerate(np.concatenate([images] * reps))]
+    for f in futures:
+        f.result(timeout=300)
+    return len(futures) / (time.perf_counter() - t0)
+
+
+def multi_serve(card_str: str) -> list:
+    """Phase 11's serving: each layout of SERVE_LAYOUTS (and D = 2 under
+    w8a8_static) bit-equal to the one-device calls at the same per-shard
+    bucket, then its engine's img/s at bucket BATCH."""
+    cfg = Config.from_dict(FLAGSHIP)
+    one = Translator(cfg, device="cuda")
+    gens = one.init_members(N_MEMBERS, seed=0)
+    sds = [g.state_dict() for g in gens]
+    rng = np.random.default_rng(12)
+    x = rng.integers(0, 256, (BATCH, HW, HW, 3), dtype=np.uint8)
+    z = rng.standard_normal((BATCH, cfg.gen.style_dim)).astype(np.float32)
+    # member 0's calibration for the static int8 mode, on the card
+    calib = one.make_gen(quant="w8a8_calib")
+    calib.load_state_dict(sds[0], strict=True)
+    stats = port_quant_stats_to_tree(calibrate(
+        one, calib, [rng.uniform(-1, 1, (BATCH, HW, HW, 3))
+                     .astype(np.float32)], num_style=2, seed=0), cfg)
+    del calib
+    # the one-device engines at the same bucket, beside the layouts
+    out = []
+    for name, params, all_members in (
+            ("Translator (one device), member 0", gens[0], False),
+            ("Translator (one device), all members", gens, True)):
+        engine = BatchingEngine(one, params, (HW, HW), max_batch=BATCH,
+                                max_delay_ms=200.0, all_members=all_members)
+        engine.start()
+        try:
+            engine.warmup()
+            ips = engine_ips(engine, x, reps=2 if all_members else 8)
+        finally:
+            engine.stop()
+        images = ips * (N_MEMBERS if all_members else 1)
+        out.append((name, ips, images))
+        log(f"[multi-gpu] {name}: engine at bucket {BATCH}: {ips:.6g} "
+            f"requests/s = {images:.6g} images/s [{card_str}]")
+    del gens
+    for name, d, k in SERVE_LAYOUTS + (
+            ("ShardedTranslator D=2 w8a8_static", 2, 1),):
+        quant = "w8a8_static" if "w8a8" in name else "none"
+        qcfg = Config.from_dict({**FLAGSHIP, "quant": quant})
+        qstats = stats if quant != "none" else None
+        devices = serving_devices(d * k)
+        if k == 1:
+            tr = ShardedTranslator(qcfg, devices, quant_stats=qstats)
+            ref = Translator(qcfg, quant_stats=qstats, device="cuda")
+            members, gens = tr.load_members(sds), ref.load_members(sds)
+            reset_counts()
+            got = tr.translate_u8io_device(members, x, z=z, member=0)
+            torch.cuda.synchronize()
+            q1, q2 = conv_int8.launches, quantize_act.launches
+            n = BATCH // d
+            want = torch.cat([ref.translate_u8io_device(
+                gens, x[i * n:(i + 1) * n], z=z[i * n:(i + 1) * n],
+                member=0).to(got.device) for i in range(d)])
+            params, all_members = members[0], False
+        else:
+            tr = MemberShardedTranslator(qcfg, make_member_mesh(
+                k, devices=devices))
+            ref = Translator(qcfg, device="cuda")
+            members, gens = tr.load_members(sds), ref.load_members(sds)
+            got = tr.translate_all_u8io_device(members, x, z)
+            want = ref.translate_all_u8io_device(gens, x, z).to(got.device)
+            params, all_members = members, True
+        if not torch.equal(got, want):
+            diff = (got.int() - want.int()).abs()
+            raise AssertionError(f"{name}: differs from the one-device "
+                                 f"calls by up to {int(diff.max())} levels")
+        if quant != "none" and (q1 < 1 or q2 < 1):
+            raise AssertionError(f"{name}: Q1/Q2 launches {q1}/{q2}")
+        del gens, ref
+        engine = BatchingEngine(tr, params, (HW, HW), max_batch=BATCH,
+                                max_delay_ms=200.0, all_members=all_members)
+        engine.start()
+        try:
+            engine.warmup()
+            ips = engine_ips(engine, x, reps=8 if k == 1 else 2)
+        finally:
+            engine.stop()
+        tr.close()
+        del tr, members, params, engine
+        torch.cuda.empty_cache()
+        images = ips * (N_MEMBERS if all_members else 1)
+        names = ",".join(str(dv) for dv in devices)
+        out.append((name, ips, images))
+        log(f"[multi-gpu] {name} over [{names}]: bit-equal to the "
+            f"one-device calls at bucket {BATCH // d} per shard"
+            + (f" (Q1 {q1}, Q2 {q2} launches in the call)"
+               if quant != "none" else "")
+            + f"; engine at bucket {BATCH}: {ips:.6g} requests/s = "
+            f"{images:.6g} images/s [{card_str}]")
+    return out
+
+
+def _multi_rank(rank: int, world: int, council: int, store: str,
+                ref_path: str, out_path: str) -> None:
+    """One spawned NCCL rank of a MULTI_LAYOUTS layout: MULTI_STEPS
+    headline steps through ``train.loop.make_trainer``, then MULTI_TIMED
+    more; rank 0 writes the checked steps' metrics, every step's ms and
+    the first step's largest parameter difference to the one-process
+    step (over all ranks)."""
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        cfg = Config.from_dict({**HEADLINE, "num_devices": world,
+                                "council_parallel": council})
+        trainer = make_trainer(cfg, device=f"cuda:{rank}")
+        state = trainer.init_state(seed=0)
+        x_a, x_b = headline_batch(f"cuda:{rank}")
+        b = BATCH // trainer.data_size
+        rows = slice(trainer.data_index * b, (trainer.data_index + 1) * b)
+        state, first, ms1 = host_steps(trainer, state, x_a[rows],
+                                       x_b[rows], 1)
+        diff = max_param_diff(state.state_dicts(), torch.load(
+            ref_path, weights_only=True)["params"], trainer.member_offset)
+        diffs = [None] * world
+        dist.all_gather_object(diffs, diff)
+        state, second, ms2 = host_steps(trainer, state, x_a[rows],
+                                        x_b[rows], MULTI_STEPS - 1)
+        state, _, timed = host_steps(trainer, state, x_a[rows], x_b[rows],
+                                     MULTI_TIMED)
+        if rank == 0:
+            torch.save({"metrics": first + second, "ms": ms1 + ms2,
+                        "timed": timed, "param_diff": max(diffs)}, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def multi_train_spawned(card_str: str, ref_path: str, tmp: str) -> list:
+    """Each MULTI_LAYOUTS layout this machine has the cards for, as spawned
+    NCCL ranks, against the one-process reference."""
+    ref = torch.load(ref_path, weights_only=True)
+    out = []
+    for name, world, council in MULTI_LAYOUTS:
+        if torch.cuda.device_count() < world:
+            continue
+        store = os.path.join(tmp, f"store-{world}-{council}")
+        res = os.path.join(tmp, f"multi-{world}-{council}.pt")
+        mp.spawn(_multi_rank, args=(world, council, store, ref_path, res),
+                 nprocs=world, join=True)
+        got = torch.load(res, weights_only=True)
+        for step, (m, w) in enumerate(zip(got["metrics"], ref["metrics"])):
+            for key in w:
+                if abs(m[key] - w[key]) > MULTI_ATOL + MULTI_RTOL * abs(
+                        w[key]):
+                    raise AssertionError(f"{name} step {step + 1}: {key} "
+                                         f"{m[key]} vs {w[key]}")
+        if got["param_diff"] > MULTI_PARAM_TOL:
+            raise AssertionError(f"{name}: parameters {got['param_diff']} "
+                                 f"from the one-process step")
+        ms = float(np.median(got["timed"]))
+        ips = BATCH / (ms / 1e3)
+        out.append((name, ips))
+        log(f"[multi-gpu] {name} on {world} cards: {MULTI_STEPS} headline "
+            f"steps within rtol {MULTI_RTOL} / atol {MULTI_ATOL} of the "
+            f"one-process metrics, parameters within "
+            f"{got['param_diff']:.3g} after step 1; ms per step "
+            f"{[round(v, 6) for v in got['ms']]}, then {MULTI_TIMED} more: "
+            f"median {ms:.6g} ms (min {min(got['timed']):.6g}, max "
+            f"{max(got['timed']):.6g}) = {ips:.6g} img/s [{card_str}]")
+    return out
+
+
+def phase_multi_gpu(card_str: str) -> None:
+    """Phase 11 (see the module docstring)."""
+    count = torch.cuda.device_count()
+    ran = [name for name, world, _ in MULTI_LAYOUTS if count >= world]
+    skipped = [name for name, world, _ in MULTI_LAYOUTS if count < world]
+    serve_on = ("distinct cards where the machine has them, else cuda:0 "
+                "named D or K times")
+    log(f"[multi-gpu] device_count={count}; layouts run: NCCL world 1 "
+        f"DataParallelTrainer and CouncilShardTrainer(D=1,K=1); serving "
+        f"{', '.join(n for n, _, _ in SERVE_LAYOUTS)} and D=2 w8a8_static "
+        f"over {serve_on}; spawned NCCL ranks: {', '.join(ran) or 'none'}"
+        + (f"; not run: {', '.join(skipped)} (each needs its ranks' "
+           f"cards, this machine has {count})" if skipped else ""))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.cuda.set_device(0)
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{os.path.join(tmp, 'store')}",
+            rank=0, world_size=1)
+        try:
+            ref_path = os.path.join(tmp, "reference.pt")
+            multi_train_world1(card_str, ref_path)
+            multi_serve(card_str)
+        finally:
+            dist.destroy_process_group()
+            torch.backends.cudnn.deterministic = deterministic
+        multi_train_spawned(card_str, ref_path, tmp)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -1878,6 +2251,7 @@ def main():
     phase_train_accuracy(card_str)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
         cli_launches = phase_train_cli(card_str, tmp, step_ips)
+    phase_multi_gpu(card_str)
 
     norm_l = launches["instance_norm.launches"]
     adain_l = launches["instance_norm.affine_launches"]

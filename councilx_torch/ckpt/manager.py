@@ -205,20 +205,29 @@ def _write_async(root: str, path: str, payload, keep: int) -> None:
 
 
 def save_checkpoint(root: str, state, step: int, keep: int = 3,
-                    async_save: bool = False) -> str:
+                    async_save: bool = False, trainer=None) -> str:
     """Snapshot ``state`` (a ``TrainState``) at ``step`` under
     ``root/step_%08d`` -> its path.
 
-    The device-to-host copy (``state.snapshot()``) is done before this
-    returns, because the train step updates the parameters in place; with
-    ``async_save`` only the file write runs on, in a background thread, and
-    :func:`wait_for_checkpoints` waits for it. One write is in flight at a
-    time: a save first waits for the previous one."""
+    The device-to-host copy (``state.snapshot()``, or ``trainer.snapshot(
+    state)``) is done before this returns, because the train step updates
+    the parameters in place; with ``async_save`` only the file write runs
+    on, in a background thread, and :func:`wait_for_checkpoints` waits for
+    it. One write is in flight at a time: a save first waits for the
+    previous one.
+
+    Multi-process (``councilx_torch/parallel``): every rank calls this with
+    its trainer; the members are gathered to rank 0 in the one-process
+    layout (a collective), and rank 0 alone writes, so the snapshot resumes
+    under any layout. The other ranks get the path and write nothing."""
     path = os.path.abspath(_ckpt_dir(root, step))
-    os.makedirs(root, exist_ok=True)
     with _writer_lock:
         wait_for_checkpoints()
-        payload = state.snapshot()
+        payload = (state.snapshot() if trainer is None
+                   else trainer.snapshot(state))
+        if payload is None:
+            return path
+        os.makedirs(root, exist_ok=True)
         if async_save:
             t = threading.Thread(target=_write_async,
                                  args=(root, path, payload, keep),

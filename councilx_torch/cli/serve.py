@@ -25,8 +25,17 @@ W8A8 int8 serving: ``--quant w8a8`` (per-image activation scales), or
 ``--quant w8a8_static --calibration quant_stats.npz`` (scales from
 ``python -m councilx_torch.tools.calibrate_quant``, or the JAX package's
 ``tools/calibrate_quant.py``: the same file), quantizing the convs of the
-config's ``quant_scope``. ``--data_parallel`` and ``--member_parallel``
-are not ported yet and exit with an error.
+config's ``quant_scope``.
+
+Several devices, in this one process: ``--data_parallel D`` splits each
+batch of one member over D devices (``ShardedTranslator``; buckets and
+``--max_batch`` multiples of D); with ``--member all`` it splits the
+members instead, as ``--member_parallel K`` does (``MemberShardedTranslator``,
+K must divide the council), and both together split the batch over D and
+the members over K (D*K devices). The translators use the first D*K cards
+(``--device cpu``: the CPU, D*K times); more than the machine has is
+refused. Member parallelism needs ``--member all``; ``--calibration`` does
+not go with ``--member all``.
 """
 
 import argparse
@@ -52,11 +61,6 @@ def preprocess_bytes(data: bytes, new_size: int, crop: int):
     return resize_crop_image(Image.open(io.BytesIO(data)), new_size, crop)
 
 
-def _not_ported(flag: str) -> SystemExit:
-    return SystemExit(f"{flag} is not ported yet to councilx_torch "
-                      "(use the JAX package's councilx-serve for it)")
-
-
 def build_engine(cfg, checkpoint: str, member, direction: str,
                  max_batch: int, max_delay_ms: float, data_parallel: int = 0,
                  warmup: bool = True, calibration: str = None,
@@ -68,24 +72,52 @@ def build_engine(cfg, checkpoint: str, member, direction: str,
     ``quant_stats`` .npz of ``cfg.quant`` "w8a8_static" (one member's)."""
     from councilx_torch.ckpt.manager import load_generator_state_dicts
     from councilx_torch.inference.server import BatchingEngine
-    from councilx_torch.inference.translate import Translator
+    from councilx_torch.inference.translate import (MemberShardedTranslator,
+                                                    ShardedTranslator,
+                                                    Translator)
+    from councilx_torch.parallel.mesh import local_devices, make_member_mesh
 
-    if data_parallel > 1:
-        raise _not_ported("--data_parallel")
-    if member_parallel > 1:
-        raise _not_ported("--member_parallel")
     all_members = member == "all"
+    if calibration and all_members:
+        raise SystemExit(
+            "--member all cannot use --calibration: the activation "
+            "scales are calibrated per member (calibrate_quant "
+            "--member); quantized ensemble serving would silently clip "
+            "the other members' activations")
+    if member_parallel > 1 and not all_members:
+        raise SystemExit("--member_parallel shards the council axis: it "
+                         "requires --member all")
+    # one member splits its batch over D; the ensemble splits its members
+    # over K (--member_parallel, or --data_parallel alone, as the JAX CLI
+    # reads it), and with both flags its batch over D too
+    if not all_members:
+        shards, dp = 1, max(1, data_parallel)
+    elif member_parallel > 1:
+        shards, dp = member_parallel, max(1, data_parallel)
+    else:
+        shards, dp = max(1, data_parallel), 1
+    if cfg.council.council_size % shards:
+        raise SystemExit(f"member shards {shards} must divide council_size "
+                         f"{cfg.council.council_size}")
+    if max_batch % dp:
+        raise SystemExit(f"--max_batch {max_batch} must be a multiple of "
+                         f"--data_parallel {dp}")
+    try:
+        devices = (local_devices(shards * dp, device)
+                   if shards * dp > 1 else None)
+    except ValueError as e:
+        raise SystemExit(f"--data_parallel/--member_parallel: {e}") from None
     quant_stats = None
     if calibration:
-        if all_members:
-            raise SystemExit(
-                "--member all cannot use --calibration: the activation "
-                "scales are calibrated per member (calibrate_quant "
-                "--member); quantized ensemble serving would silently clip "
-                "the other members' activations")
         from councilx_torch.ckpt.manager import load_params_npz
         quant_stats = load_params_npz(calibration)
-    translator = Translator(cfg, quant_stats=quant_stats, device=device)
+    if shards > 1:
+        translator = MemberShardedTranslator(
+            cfg, make_member_mesh(shards, devices, data_parallel=dp))
+    elif dp > 1:
+        translator = ShardedTranslator(cfg, devices, quant_stats=quant_stats)
+    else:
+        translator = Translator(cfg, quant_stats=quant_stats, device=device)
     state_dicts = load_generator_state_dicts(checkpoint, cfg, direction)
     if all_members:
         params = translator.load_members(state_dicts)
@@ -227,9 +259,13 @@ def main(argv=None):
                    help="torch device (default: cuda; cpu serves on the CPU)")
     p.add_argument("--no_warmup", action="store_true")
     p.add_argument("--data_parallel", type=int, default=0,
-                   help="not ported yet")
+                   help="serve over this many devices: the BATCH axis for a "
+                        "single member, the MEMBER axis with --member all "
+                        "(must divide council_size)")
     p.add_argument("--member_parallel", type=int, default=0,
-                   help="not ported yet")
+                   help="with --member all: shard the council axis over "
+                        "this many devices; with --data_parallel D too, a "
+                        "D x K grid that splits the batch as well")
     p.add_argument("--quant", default=None,
                    choices=["none", "w8a8", "w8a8_static"],
                    help="override cfg.quant: W8A8 int8 generator convs "

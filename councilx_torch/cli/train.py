@@ -11,8 +11,19 @@ The run goes to ``<output_path>/<config name>/``: ``config.yaml``,
 and ``councilx_torch.cli.translate`` / ``.gui`` / ``.serve`` read.
 SIGTERM or SIGINT finish the current step, write a final snapshot and exit
 0 (a second signal kills). ``--device`` defaults to the card; ``cpu``
-trains on the CPU. ``--coordinator``/``--num_processes``/``--process_id``
-(multi-host) are not ported yet.
+trains on the CPU.
+
+Multi-GPU: one process per GPU, the config's ``num_devices`` the number of
+processes (and ``council_parallel`` the council axis), launched by torchrun
+
+    torchrun --nproc_per_node=G -m councilx_torch.cli.train --config run.yaml
+
+or by hand, every process with ``--coordinator host:port --num_processes
+G --process_id i`` (or the ``COUNCILX_COORDINATOR`` /
+``COUNCILX_NUM_PROCESSES`` / ``COUNCILX_PROCESS_ID`` variables). Each
+process takes ``cuda:LOCAL_RANK`` (``--device cpu``: the CPU over gloo).
+Signals are left to their default action there: one process stopping early
+would strand the others in a collective.
 """
 
 import argparse
@@ -23,6 +34,7 @@ import threading
 import torch
 
 from councilx_torch.config import load_config
+from councilx_torch.parallel import multihost
 from councilx_torch.train.loop import train
 
 
@@ -46,15 +58,17 @@ def main(argv=None):
                    help="torch device (default: the card; 'cpu' to train "
                         "on the CPU)")
     p.add_argument("--coordinator", default=None,
-                   help="multi-host runs: not ported yet")
+                   help="host:port of process 0, or a URL (file://...): "
+                        "multi-process runs launched without torchrun")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     args = p.parse_args(argv)
-    if (args.coordinator or (args.num_processes or 1) > 1
-            or args.process_id):
-        raise SystemExit("--coordinator/--num_processes/--process_id "
-                         "(multi-host training) is not ported yet to "
-                         "councilx_torch")
+    try:
+        device = multihost.maybe_init_distributed(
+            args.coordinator, args.num_processes, args.process_id,
+            device=args.device)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
 
     cfg = load_config(args.config)
     run_name = os.path.splitext(os.path.basename(args.config))[0]
@@ -72,8 +86,9 @@ def main(argv=None):
         print(f"signal {signum}: finishing the current step and "
               "checkpointing (repeat to force-kill)", flush=True)
 
-    previous = {sig: signal.signal(sig, _request_stop)
-                for sig in (signal.SIGTERM, signal.SIGINT)}
+    previous = ({sig: signal.signal(sig, _request_stop)
+                 for sig in (signal.SIGTERM, signal.SIGINT)}
+                if multihost.process_count() == 1 else {})
     try:
         with torch.autograd.set_detect_anomaly(args.debug_nans):
             summary = train(cfg, output_path=args.output_path,
@@ -82,7 +97,7 @@ def main(argv=None):
                             max_steps=args.max_steps, seed=args.seed,
                             profile_steps=(range(10, 15) if args.profile
                                            else None),
-                            stop_event=stop_event, device=args.device)
+                            stop_event=stop_event, device=device)
     finally:
         for sig, handler in previous.items():
             signal.signal(sig, handler)
@@ -91,4 +106,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        multihost.shutdown()

@@ -16,7 +16,9 @@ last image, as the JAX CLI does) and are written as
 from a ``torch.Generator`` seeded with ``--seed`` (other numbers than the
 JAX CLI's ``jax.random`` stream); ``--style_image`` takes each member's
 style code from an example image instead. ``--device`` defaults to the
-card. ``--data_parallel > 1`` is not ported yet.
+card. ``--data_parallel D`` splits each batch over the first D cards
+(``ShardedTranslator``; ``--batch_size`` a multiple of D; ``--device cpu``:
+the CPU, D times).
 """
 
 import argparse
@@ -43,13 +45,14 @@ def main(argv=None):
                    help="style-guided mode: take the style code from this "
                         "example image instead of sampling z")
     p.add_argument("--data_parallel", type=int, default=0,
-                   help="not ported yet")
+                   help="shard each batch over this many devices (0 = one "
+                        "device; batch_size must divide evenly)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default: the card)")
     args = p.parse_args(argv)
-    if args.data_parallel > 1:
-        raise SystemExit("--data_parallel is not ported yet to "
-                         "councilx_torch")
+    if args.data_parallel > 1 and args.batch_size % args.data_parallel:
+        raise SystemExit(f"--batch_size {args.batch_size} not divisible "
+                         f"by --data_parallel {args.data_parallel}")
 
     from PIL import Image
 
@@ -58,10 +61,19 @@ def main(argv=None):
     from councilx_torch.data.dataset import (ImageFolderDataset,
                                              _load_resize_crop)
     from councilx_torch.data.ondevice import normalize_batch
-    from councilx_torch.inference.translate import Translator
+    from councilx_torch.inference.translate import (ShardedTranslator,
+                                                    Translator)
+    from councilx_torch.parallel.mesh import local_devices
 
     cfg = load_config(args.config)
-    translator = Translator(cfg, device=args.device)
+    if args.data_parallel > 1:
+        try:
+            devices = local_devices(args.data_parallel, args.device)
+        except ValueError as e:
+            raise SystemExit(f"--data_parallel: {e}") from None
+        translator = ShardedTranslator(cfg, devices)
+    else:
+        translator = Translator(cfg, device=args.device)
     gens = translator.load_members(load_generator_state_dicts(
         args.checkpoint, cfg, args.direction))
     os.makedirs(args.output_folder, exist_ok=True)

@@ -300,8 +300,13 @@ class Config:
     # stage step k+1's batches in a worker thread while step k runs
     # (train/loop.py)
     host_prefetch: bool = True
-    # multi-device training: the train loop refuses num_devices > 1,
-    # council_parallel > 1 and det_data_reduction (not ported yet)
+    # multi-GPU training (councilx_torch/parallel), one process per GPU:
+    # the world size (1 = one device); the council (member) axis within it,
+    # which must divide it and the council (> 1 selects the member-sharded
+    # trainer); and order-fixed sums over the data axis (all-gather, then a
+    # sum in rank order), which route pure data parallelism onto the
+    # member-sharded trainer with a council axis of 1. The checks are
+    # parallel/mesh.make_mesh's and the trainers', as in the JAX package.
     num_devices: int = 1
     council_parallel: int = 1
     det_data_reduction: bool = False

@@ -23,6 +23,10 @@ with 7 (the JAX hook's fixed ``PRNGKey(7)``), and passed to
 ``CouncilTrainer.sample``: the training z stream (``state.generator``) is
 not touched, so a resumed run with the hook on stays bit for bit the
 uninterrupted one.
+
+Multi-GPU: every rank calls the hook, since the translate is a collective
+under member parallelism; the features and the FID are rank 0's
+(``primary``), and the other ranks get ``{}``.
 """
 
 from __future__ import annotations
@@ -113,14 +117,18 @@ class TrainEvalHook:
                     stacklevel=3)
                 return
 
-    def features(self, trainer, state) -> Dict[str, list]:
+    def features(self, trainer, state, primary: bool = True
+                 ) -> Dict[str, list]:
         """{direction: [(n, 2048) features of each member scored]}: the
         fixed inputs translated by every member at the current parameters,
-        through the Inception module."""
+        through the Inception module; ``{}`` where not ``primary``, after
+        the translate."""
         out = {}
         for d in self.directions:
             x_t, _ = trainer.sample(state, self._inputs[d], direction=d,
                                     z=self._z[d])
+            if not primary:
+                continue
             u8 = _u8_from_unit(x_t.float()).cpu().numpy()
             members = (range(u8.shape[0]) if self.member == "all"
                        else [self.member])
@@ -129,9 +137,10 @@ class TrainEvalHook:
                       for m in members]
         return out
 
-    def __call__(self, trainer, state) -> Dict[str, float]:
+    def __call__(self, trainer, state, primary: bool = True
+                 ) -> Dict[str, float]:
         out: Dict[str, float] = {}
-        for d, feats in self.features(trainer, state).items():
+        for d, feats in self.features(trainer, state, primary).items():
             fids = [fid_from_features(f, self._target_feats[d])
                     for f in feats]
             if self.member == "all":

@@ -61,11 +61,12 @@ def _set_exception(future: Future, exc: Exception) -> None:
         pass
 
 
-def _bucket_ladder(max_batch: int) -> List[int]:
-    """Power-of-two ladder of batch sizes capped at max_batch (which is
+def _bucket_ladder(max_batch: int, multiple: int = 1) -> List[int]:
+    """Power-of-two ladder of batch sizes, each a multiple of ``multiple``
+    (a data-parallel translator's data size), capped at max_batch (which is
     always included)."""
     ladder = []
-    b = 1
+    b = multiple
     while b < max_batch:
         ladder.append(b)
         b *= 2
@@ -127,7 +128,12 @@ class BatchingEngine:
         Council-ensemble mode: ``params`` is the sequence of N members and
         every request resolves to all N members' translations of its image
         under one shared style draw — shape (N, H, W, 3) uint8. The members
-        run one after another on each batch.
+        run one after another on each batch, or split over the devices of
+        a ``MemberShardedTranslator``.
+
+    A ``ShardedTranslator`` serves one member with the batch split over its
+    devices: every bucket is a multiple of its data size, and so must
+    ``max_batch`` be.
     """
 
     def __init__(self, translator, params, image_hw, max_batch: int = 64,
@@ -139,11 +145,25 @@ class BatchingEngine:
         self.wire_format = wire_format
         self._wire_dtype = np.uint8 if wire_format == "u8" else np.float32
         self.all_members = all_members
+        axes = translator.axis_names
+        if all_members and axes and "council" not in axes:
+            raise ValueError(
+                "all_members serving cannot split only the batch: use a "
+                "MemberShardedTranslator to shard the members")
+        if not all_members and "council" in axes:
+            raise ValueError("a member-sharded translator serves all "
+                             "members: build the engine with "
+                             "all_members=True (or use ShardedTranslator "
+                             "for one member over several devices)")
         self.n_members = len(params) if all_members else 1
         self.translator = translator
         self.style_dim = translator.cfg.gen.style_dim
         self.image_hw = tuple(image_hw)
-        self.buckets = _bucket_ladder(max_batch)
+        multiple = translator.data_size
+        if max_batch % multiple:
+            raise ValueError(f"max_batch {max_batch} must be a multiple of "
+                             f"the serving data size {multiple}")
+        self.buckets = _bucket_ladder(max_batch, multiple)
         self.max_batch = max_batch
         self.max_delay_s = max_delay_ms / 1e3
         self.params = params

@@ -18,11 +18,22 @@ W8A8 serving (``cfg.quant``: "w8a8", or "w8a8_static" with the calibrated
 package's tool) quantizes the convs of ``cfg.quant_scope``
 (``nn/generator.py``); each member's int8 weights are made when the
 translator takes its weights. ``parity_mode`` turns quant off.
+
+Serving over several devices, in one process: :class:`ShardedTranslator`
+splits the batch over a list of devices (each holds every member),
+:class:`MemberShardedTranslator` the members over a ``(D, K)`` grid
+(``parallel.mesh.make_member_mesh``). Each device's share is launched from
+its own host thread, so their host time overlaps, and the results come
+together on the first device in order. A list may name one card more than
+once (a one-card machine runs these paths so).
 """
 
 from __future__ import annotations
 
-from typing import List, Mapping, Optional, Sequence, Tuple, Union
+import contextlib
+import dataclasses
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -51,6 +62,11 @@ class Translator:
     """The generator definition and translate functions for one config, on
     ``device``: the card unless the caller asks for another device (the
     CPU tests pass ``device="cpu"``)."""
+
+    # the serving layout (the sharded translators below): no device axes,
+    # the batch whole
+    axis_names: Tuple[str, ...] = ()
+    data_size = 1
 
     def __init__(self, cfg: Config, quant_stats=None,
                  device: Union[str, torch.device] = "cuda"):
@@ -155,13 +171,19 @@ class Translator:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
 
-    def _z(self, z, shape: Tuple[int, ...],
-           rng: Optional[torch.Generator]) -> torch.Tensor:
+    @staticmethod
+    def _host_z(z, shape: Tuple[int, ...], rng: Optional[torch.Generator]):
+        """``z``, or a standard normal draw of ``shape`` from ``rng`` (seed
+        0 when None), on the host."""
         if z is None:
             if rng is None:
                 rng = torch.Generator().manual_seed(0)
             z = torch.randn(shape, generator=rng)
-        return self._to_device(z)
+        return z
+
+    def _z(self, z, shape: Tuple[int, ...],
+           rng: Optional[torch.Generator]) -> torch.Tensor:
+        return self._to_device(self._host_z(z, shape, rng))
 
     @staticmethod
     def _pick(params: Members, member: Optional[int]) -> AdaINGen:
@@ -264,6 +286,208 @@ class Translator:
         """uint8-wire variant of :meth:`translate_all_u8_device`."""
         return self.translate_all_u8_device(
             members, _unit_from_u8(self._to_device(x_u8)), z)
+
+
+class _MultiDevice(Translator):
+    """One :class:`Translator` per device, and one host thread per device
+    that launches its share. A member is a tuple of its copies, one per
+    device that holds it."""
+
+    def __init__(self, cfg: Config, devices: Sequence, quant_stats=None):
+        devices = [torch.device(d) for d in devices]
+        super().__init__(cfg, quant_stats=quant_stats, device=devices[0])
+        self._per_device = [Translator(cfg, quant_stats=quant_stats,
+                                       device=d) for d in devices]
+        self._pool = ThreadPoolExecutor(
+            max_workers=len(devices), thread_name_prefix="councilx-shard")
+
+    def init_members(self, n: int, seed: int) -> List[Tuple[AdaINGen, ...]]:
+        """n members with the weights :meth:`Translator.init_members`
+        draws, copied to every device that holds them."""
+        cpu = Translator(dataclasses.replace(self.cfg, quant="none"),
+                         device="cpu")
+        return self.load_members([g.state_dict()
+                                  for g in cpu.init_members(n, seed)])
+
+    def _launch(self, jobs: Sequence[Tuple[int, Callable]]) -> list:
+        """Run ``fn()`` for each ``(device index, fn)`` from the pool's
+        threads, each inside its device; -> the results in order."""
+        def run(job):
+            i, fn = job
+            dev = self._per_device[i].device
+            with (torch.cuda.device(dev) if dev.type == "cuda"
+                  else contextlib.nullcontext()):
+                return fn()
+
+        return list(self._pool.map(run, jobs))
+
+    def _check_batch(self, x) -> int:
+        """-> rows per data shard."""
+        if x.shape[0] % self.data_size:
+            raise ValueError(
+                f"global batch {x.shape[0]} not divisible by the serving "
+                f"data-axis size {self.data_size} (the engine's bucket "
+                "ladder guarantees this; pad manual calls)")
+        return x.shape[0] // self.data_size
+
+    def _gather(self, outs: Sequence[torch.Tensor], dim: int = 0
+                ) -> torch.Tensor:
+        return torch.cat([o.to(self.device) for o in outs], dim=dim)
+
+    def close(self) -> None:
+        self._pool.shutdown(wait=True)
+
+
+class ShardedTranslator(_MultiDevice):
+    """Translator with the batch split over ``devices``: serving-side data
+    parallelism (counterpart of the JAX package's ``ShardedTranslator``
+    over a ``("data",)`` mesh). Every device holds a copy of the weights,
+    quantized ones included; each call splits the batch in contiguous
+    equal slices, translates slice i on device i, and concatenates the
+    results on the first device. Images are independent, so each slice's
+    numbers are those of the one-device call at the slice's batch.
+
+    A member (:meth:`load_members`) is a tuple of its copies, one per
+    device."""
+
+    axis_names = ("data",)
+
+    def __init__(self, cfg: Config, devices: Sequence, quant_stats=None):
+        super().__init__(cfg, devices, quant_stats=quant_stats)
+        self.data_size = len(self._per_device)
+
+    def load_members(self, state_dicts: Sequence[Mapping[str, torch.Tensor]]
+                     ) -> List[Tuple[AdaINGen, ...]]:
+        """Each member's copies, one per device (strict loads)."""
+        per = [t.load_members(state_dicts) for t in self._per_device]
+        return list(zip(*per))
+
+    def _split(self, method: str, params, x, z, member):
+        reps = self._pick(params, member)
+        n = self._check_batch(x)
+        return self._launch([
+            (i, lambda i=i, t=t: getattr(t, method)(
+                reps[i], x[i * n:(i + 1) * n], z=z[i * n:(i + 1) * n]))
+            for i, t in enumerate(self._per_device)])
+
+    def translate(self, params, x, z=None,
+                  rng: Optional[torch.Generator] = None,
+                  member: Optional[int] = None):
+        z = self._host_z(z, (x.shape[0], self.cfg.gen.style_dim), rng)
+        outs = self._split("translate", params, x, z, member)
+        images = self._gather([o[0] for o in outs])
+        return images, (self._gather([o[1] for o in outs])
+                        if self.focus else None)
+
+    def translate_u8_device(self, params, x, z=None,
+                            rng: Optional[torch.Generator] = None,
+                            member: Optional[int] = None) -> torch.Tensor:
+        z = self._host_z(z, (x.shape[0], self.cfg.gen.style_dim), rng)
+        return self._gather(self._split("translate_u8_device", params, x,
+                                        z, member))
+
+    def translate_u8io_device(self, params, x_u8, z=None,
+                              rng: Optional[torch.Generator] = None,
+                              member: Optional[int] = None) -> torch.Tensor:
+        z = self._host_z(z, (x_u8.shape[0], self.cfg.gen.style_dim), rng)
+        return self._gather(self._split("translate_u8io_device", params,
+                                        x_u8, z, member))
+
+    def encode_style(self, params, x, member: Optional[int] = None
+                     ) -> torch.Tensor:
+        """Style codes by the first device's copy."""
+        return self._per_device[0].encode_style(
+            self._pick(params, member)[0], x)
+
+
+class MemberShardedTranslator(_MultiDevice):
+    """Council-ensemble translation with the members split over the
+    ``council`` axis of a :class:`~councilx_torch.parallel.mesh.DeviceGrid`
+    (counterpart of the JAX package's ``MemberShardedTranslator``): device
+    ``(d, c)`` holds members ``[c*m, (c+1)*m)``, ``m = N / K``, and
+    translates batch slice d with them (on a ``("council",)`` grid the
+    batch is whole). The outputs come together on the first device in
+    member order. Each member's numbers are those of the one-device
+    all-members call at the slice's batch.
+
+    A member (:meth:`load_members`) is a tuple of its copies, one per data
+    row. Quantized ensemble serving is refused: the activation scales are
+    calibrated per member."""
+
+    def __init__(self, cfg: Config, grid, quant_stats=None):
+        axes = tuple(grid.axis_names)
+        if axes not in (("council",), ("data", "council")):
+            raise ValueError(
+                "MemberShardedTranslator takes a ('council',) or "
+                "('data','council') grid (parallel.mesh.make_member_mesh), "
+                f"got axes {axes}")
+        n = cfg.council.council_size
+        k = len(grid.devices[0])
+        if n % k:
+            raise ValueError(f"council_size {n} not divisible by member-"
+                             f"grid size {k}")
+        if quant_stats is not None:
+            raise ValueError("quantized ensemble serving is unsupported: "
+                             "activation scales are calibrated per member "
+                             "(calibrate_quant --member)")
+        super().__init__(cfg, [dv for row in grid.devices for dv in row])
+        self.grid = grid
+        self.axis_names = axes
+        self.data_size = len(grid.devices)
+        self.k, self.m = k, n // k
+
+    def _cell(self, d: int, c: int) -> int:
+        return d * self.k + c
+
+    def load_members(self, state_dicts: Sequence[Mapping[str, torch.Tensor]]
+                     ) -> List[Tuple[AdaINGen, ...]]:
+        """Member j's copies, one per data row d, on device (d, j // m)."""
+        return [tuple(self._per_device[self._cell(d, j // self.m)]
+                      .load_members([sd])[0]
+                      for d in range(self.data_size))
+                for j, sd in enumerate(state_dicts)]
+
+    def _cells(self, method: str, members, x, z, z_members: bool) -> list:
+        """``method(gens, x_slice, z_slice)`` on every cell -> the (N, B,
+        ...) results, gathered in member order."""
+        n = self._check_batch(x)
+
+        def job(d, c):
+            gens = [members[j][d] for j in range(c * self.m,
+                                                 (c + 1) * self.m)]
+            zs = (z[c * self.m:(c + 1) * self.m, d * n:(d + 1) * n]
+                  if z_members else z[d * n:(d + 1) * n])
+            t = self._per_device[self._cell(d, c)]
+            return lambda: getattr(t, method)(gens, x[d * n:(d + 1) * n], zs)
+
+        cells = [(d, c) for d in range(self.data_size)
+                 for c in range(self.k)]
+        outs = self._launch([(self._cell(d, c), job(d, c))
+                             for d, c in cells])
+        by_cell = dict(zip(cells, outs))
+
+        def assemble(pick):
+            return self._gather(
+                [self._gather([pick(by_cell[d, c])
+                               for d in range(self.data_size)], dim=1)
+                 for c in range(self.k)])
+        return assemble
+
+    def translate_all_u8_device(self, members, x, z) -> torch.Tensor:
+        return self._cells("translate_all_u8_device", members, x, z,
+                           False)(lambda o: o)
+
+    def translate_all_u8io_device(self, members, x_u8, z) -> torch.Tensor:
+        return self._cells("translate_all_u8io_device", members, x_u8, z,
+                           False)(lambda o: o)
+
+    def translate_all_members(self, members, x, z=None,
+                              rng: Optional[torch.Generator] = None):
+        z = self._host_z(z, (self.cfg.council.council_size, x.shape[0],
+                             self.cfg.gen.style_dim), rng)
+        assemble = self._cells("translate_all_members", members, x, z, True)
+        images = assemble(lambda o: o[0])
+        return images, assemble(lambda o: o[1]) if self.focus else None
 
 
 def denormalize_to_uint8(img: np.ndarray) -> np.ndarray:

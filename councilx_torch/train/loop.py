@@ -1,4 +1,5 @@
-"""The outer training loop (reference train.py), on one device.
+"""The outer training loop (reference train.py), on one device or one
+process per GPU.
 
 Counterpart of ``councilx/train/loop.py``: fetch an unpaired batch pair,
 step, then log, sample and snapshot on the configured cadences. In the
@@ -27,8 +28,16 @@ step and the z generator, fast-forwards the loaders by the step
 (``start_batch``) and keys the augment by the absolute step, so it goes on
 bit for bit as the uninterrupted run would.
 
-Not ported yet (raise ``NotImplementedError``): ``num_devices > 1``,
-``council_parallel > 1`` and ``det_data_reduction``.
+Multi-GPU: one process per GPU runs this function (torchrun, or
+``cli/train.py``'s ``--coordinator/--num_processes/--process_id``), with
+``cfg.num_devices`` the world size and ``cfg.council_parallel`` the council
+axis (:func:`make_trainer`). Each rank loads its data shard's rows (the
+ranks of one shard load the same rows) and crops them by their global row;
+the display batches are rank 0's; the resume step is agreed before any rank
+restores; the sample sheets are drawn on every rank (a collective under
+member parallelism), and the logs, sheets, HTML and snapshot files are
+rank 0's. ``stop_event`` is honoured at one process only, as in the JAX
+loop: one rank leaving early would strand the others in a collective.
 """
 
 from __future__ import annotations
@@ -48,6 +57,9 @@ from councilx_torch.config import Config
 from councilx_torch.data.loader import get_all_data_loaders
 from councilx_torch.data.ondevice import augment_batch, draw_crops, row_seed
 from councilx_torch.eval.hook import TrainEvalHook
+from councilx_torch.parallel import multihost
+from councilx_torch.parallel.council_shard import CouncilShardTrainer
+from councilx_torch.parallel.mesh import DataParallelTrainer, make_mesh
 from councilx_torch.train.trainer import CouncilTrainer
 from councilx_torch.utils.images import write_html, write_sample_sheet
 from councilx_torch.utils.logging import MetricLogger, prepare_sub_folder
@@ -56,21 +68,33 @@ from councilx_torch.utils.logging import MetricLogger, prepare_sub_folder
 _STREAM_A, _STREAM_B, _STREAM_SAMPLE = 0, 1, 7
 
 
-def _refuse_unported(cfg: Config) -> None:
-    for on, what in ((cfg.num_devices > 1, "num_devices > 1"),
-                     (cfg.council_parallel > 1, "council_parallel > 1"),
-                     (cfg.det_data_reduction, "det_data_reduction")):
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported yet to councilx_torch; train with "
-                "the JAX package's councilx-train for it")
-
-
 def make_trainer(cfg: Config, device="cuda") -> CouncilTrainer:
-    """The trainer for ``cfg`` on ``device``: one device, the only kind the
-    port has yet."""
-    _refuse_unported(cfg)
-    return CouncilTrainer(cfg, device=device)
+    """The trainer for ``cfg`` on this process's ``device``, as the JAX
+    package routes it: ``num_devices == 1`` -> :class:`CouncilTrainer`;
+    more -> one process per GPU over the world's process group, the
+    data-parallel trainer, or with ``council_parallel > 1`` the
+    member-sharded one. ``det_data_reduction`` needs the shard trainer's
+    explicit reduction, so pure data parallelism takes it with a council
+    axis of 1. ``num_devices`` must be the world size: one process asked
+    for more refuses."""
+    world = multihost.process_count()
+    if max(1, cfg.num_devices) != world:
+        raise ValueError(
+            f"num_devices={cfg.num_devices} (council_parallel="
+            f"{cfg.council_parallel}, det_data_reduction="
+            f"{cfg.det_data_reduction}) trains one process per GPU, and "
+            f"this run has {world}: launch num_devices processes with "
+            f"torchrun --nproc_per_node={cfg.num_devices} -m "
+            "councilx_torch.cli.train (or --coordinator/--num_processes/"
+            "--process_id), or set num_devices to the world size")
+    if cfg.num_devices <= 1:
+        return CouncilTrainer(cfg, device=device)
+    if cfg.council_parallel > 1 or cfg.det_data_reduction:
+        return CouncilShardTrainer(
+            cfg, make_mesh(cfg.num_devices, cfg.council_parallel,
+                           always_2d=True), device=device)
+    return DataParallelTrainer(cfg, make_mesh(cfg.num_devices),
+                               device=device)
 
 
 def mask_skipped_metrics(metrics: Dict[str, float]) -> Dict[str, float]:
@@ -110,38 +134,61 @@ def train(cfg: Config, output_path: str = "outputs", run_name: str = "run",
 
     ``stop_event`` (a ``threading.Event``): once set, the loop finishes the
     current step, writes a final snapshot and returns with
-    ``interrupted=True``."""
-    _refuse_unported(cfg)
-    run_dir = os.path.join(output_path, run_name)
-    ckpt_dir, image_dir = prepare_sub_folder(run_dir)
-    with open(os.path.join(run_dir, "config.yaml"), "w") as f:
-        yaml.safe_dump(cfg.to_dict(), f)
+    ``interrupted=True``. Ignored when more than one process trains.
 
+    Multi-process: every rank calls this (see the module docstring); the
+    summary's ``snapshot_bytes`` is rank 0's alone (None elsewhere)."""
+    n_proc = multihost.process_count()
+    primary = multihost.is_primary()
     trainer = make_trainer(cfg, device)
     dev = trainer.device
+    run_dir = os.path.join(output_path, run_name)
+    ckpt_dir = os.path.join(run_dir, "checkpoints")
+    image_dir = os.path.join(run_dir, "images")
+    if primary:
+        prepare_sub_folder(run_dir)
+        with open(os.path.join(run_dir, "config.yaml"), "w") as f:
+            yaml.safe_dump(cfg.to_dict(), f)
+
     start_step = 0
-    if resume and latest_checkpoint(ckpt_dir) is not None:
-        payload, start_step = restore_checkpoint(ckpt_dir)
-        state = trainer.restore_state(payload)
-        del payload
-        print(f"resumed from iteration {start_step}", flush=True)
-    else:
+    state = None
+    if resume:
+        # agree before any rank restores: each resolves --resume on its own
+        # file system, and a rank that restores while another initializes
+        # would desynchronize every later collective
+        found = latest_checkpoint(ckpt_dir)
+        steps = multihost.allgather_int(found[0] if found else -1)
+        if min(steps) != max(steps):
+            raise RuntimeError(
+                f"resume desynchronized across ranks: latest snapshot steps "
+                f"{steps}; snapshots must live on a shared file system (or "
+                "be mirrored to every host)")
+        if steps[0] >= 0:
+            payload, start_step = restore_checkpoint(ckpt_dir)
+            state = trainer.restore_state(payload)
+            del payload
+            if primary:
+                print(f"resumed from iteration {start_step}", flush=True)
+    if state is None:
         state = trainer.init_state(seed)
 
-    bs = cfg.batch_size
+    bs = multihost.local_batch_size(cfg.batch_size, trainer.data_size)
     train_a, train_b, test_a, test_b = get_all_data_loaders(
-        cfg, synthetic=synthetic, batch_size=bs, start_batch=start_step)
-    # fixed display rows: epoch 0's, whatever the resume point
+        cfg, synthetic=synthetic, batch_size=bs,
+        shard_index=trainer.data_index, shard_count=trainer.data_size,
+        start_batch=start_step)
+    # fixed display rows: epoch 0's, whatever the resume point; rank 0's
+    # everywhere, since sampling is a collective over the same pixels
     disp_n = min(cfg.display_size, bs)
-    disp_a = test_a.head_rows(disp_n)
-    disp_train_a = train_a.head_rows(disp_n)
+    disp_a = multihost.broadcast_host(test_a.head_rows(disp_n))
+    disp_train_a = multihost.broadcast_host(train_a.head_rows(disp_n))
     crop_h, crop_w = cfg.data.crop_image_height, cfg.data.crop_image_width
     h, w = cfg.data.new_size, cfg.data.new_size
     # in-training FID against the test split; its inputs are head_rows, so
     # it neither consumes nor races the loaders' streams
     eval_hook = (TrainEvalHook(cfg, trainer, test_a, test_b)
                  if cfg.eval_iter else None)
-    logger = MetricLogger(run_dir)
+    logger = MetricLogger(run_dir) if primary else None
 
     limit = min(cfg.max_iter, max_steps + start_step if max_steps
                 else cfg.max_iter)
@@ -154,7 +201,8 @@ def train(cfg: Config, output_path: str = "outputs", run_name: str = "run",
         pinned for a non-blocking copy. Keyed by s alone, so staging ahead
         changes nothing."""
         a_u8, b_u8 = next(it_a), next(it_b)
-        rows = range(0, bs)
+        # the crops and flips of these rows' global indices
+        rows = range(trainer.data_index * bs, (trainer.data_index + 1) * bs)
         out = (torch.from_numpy(a_u8), torch.from_numpy(b_u8),
                draw_crops(seed, s, _STREAM_A, rows, h, w, crop_h, crop_w),
                draw_crops(seed, s, _STREAM_B, rows, h, w, crop_h, crop_w))
@@ -189,7 +237,8 @@ def train(cfg: Config, output_path: str = "outputs", run_name: str = "run",
     last_snapshot = None
     try:
         while step < limit:
-            if stop_event is not None and stop_event.is_set():
+            if stop_event is not None and n_proc == 1 \
+                    and stop_event.is_set():
                 interrupted = True
                 break
             if pending is not None:
@@ -202,7 +251,7 @@ def train(cfg: Config, output_path: str = "outputs", run_name: str = "run",
                 staged = stage(step)
             x_a, x_b = upload(staged)
 
-            if profile_steps and step == profile_steps.start:
+            if primary and profile_steps and step == profile_steps.start:
                 prof = _start_profile(dev)
             state, metrics = trainer.train_step(state, x_a, x_b)
             step += 1
@@ -214,32 +263,41 @@ def train(cfg: Config, output_path: str = "outputs", run_name: str = "run",
             if step % cfg.log_iter == 0:
                 host = mask_skipped_metrics(_host_metrics(metrics))
                 now = time.perf_counter()
-                images_per_sec = window_steps * bs / max(now - t_window, 1e-9)
+                images_per_sec = (window_steps * cfg.batch_size
+                                  / max(now - t_window, 1e-9))
                 t_window, window_steps = now, 0
-                host["images_per_sec"] = images_per_sec
-                logger.write(step, host)
+                if primary:
+                    host["images_per_sec"] = images_per_sec
+                    logger.write(step, host)
 
+            # the translate is a collective under member parallelism; the
+            # features and the FID are rank 0's
             if eval_hook is not None and step % cfg.eval_iter == 0:
-                logger.write(step, eval_hook(trainer, state))
+                fids = eval_hook(trainer, state, primary=primary)
+                if primary:
+                    logger.write(step, fids)
 
             if cfg.image_save_iter and step % cfg.image_save_iter == 0:
                 _write_samples(trainer, state, disp_a, disp_train_a,
-                               image_dir, step, crop_h, crop_w, seed)
-                write_html(os.path.join(run_dir, "index.html"), image_dir,
-                           step, cfg.image_save_iter)
+                               image_dir, step, crop_h, crop_w, seed,
+                               write=primary)
+                if primary:
+                    write_html(os.path.join(run_dir, "index.html"),
+                               image_dir, step, cfg.image_save_iter)
 
             # a rolling "current" sheet (overwritten, not archived)
             if cfg.image_display_iter and step % cfg.image_display_iter == 0:
                 _write_sheet(trainer, state, disp_a, image_dir, "current",
                              trainer.directions[0], step, crop_h, crop_w,
-                             seed)
+                             seed, write=primary)
 
             if cfg.snapshot_save_iter and step % cfg.snapshot_save_iter == 0:
                 t0 = time.perf_counter()
                 wait_for_checkpoints()
                 t1 = time.perf_counter()
                 last_snapshot = save_checkpoint(ckpt_dir, state, step,
-                                                async_save=True)
+                                                async_save=True,
+                                                trainer=trainer)
                 held["write_wait"] += t1 - t0
                 copy_s.append(time.perf_counter() - t1)
     finally:
@@ -249,7 +307,8 @@ def train(cfg: Config, output_path: str = "outputs", run_name: str = "run",
             pool.shutdown(wait=True, cancel_futures=True)
         it_a.close()
         it_b.close()
-        logger.close()
+        if logger is not None:
+            logger.close()
     t0 = time.perf_counter()
     wait_for_checkpoints()
     held["write_wait"] += time.perf_counter() - t0
@@ -257,7 +316,8 @@ def train(cfg: Config, output_path: str = "outputs", run_name: str = "run",
     if last_snapshot != os.path.abspath(os.path.join(
             ckpt_dir, f"step_{step:08d}")):
         t0 = time.perf_counter()
-        last_snapshot = save_checkpoint(ckpt_dir, state, step)
+        last_snapshot = save_checkpoint(ckpt_dir, state, step,
+                                        trainer=trainer)
         final_s = time.perf_counter() - t0
     return {"step": step, "start_step": start_step,
             "images_per_sec": images_per_sec, "interrupted": interrupted,
@@ -267,7 +327,7 @@ def train(cfg: Config, output_path: str = "outputs", run_name: str = "run",
             "snapshot_write_wait_seconds": held["write_wait"],
             "final_save_seconds": final_s,
             "snapshot_bytes": os.path.getsize(os.path.join(
-                last_snapshot, SNAPSHOT_FILE))}
+                last_snapshot, SNAPSHOT_FILE)) if primary else None}
 
 
 def _start_profile(dev: torch.device):
@@ -290,10 +350,11 @@ def _stop_profile(prof, dev: torch.device, run_dir: str) -> None:
 
 def _write_sheet(trainer: CouncilTrainer, state, batch_u8, image_dir: str,
                  name: str, direction: str, step: int, crop_h: int,
-                 crop_w: int, seed: int) -> None:
+                 crop_w: int, seed: int, write: bool = True) -> None:
     """One sample sheet: every member's translation of the center-cropped
     batch, with z keyed by the step (the training z stream is not
-    touched)."""
+    touched). ``write=False`` samples (a collective under member
+    parallelism) and writes no file."""
     x = augment_batch(torch.from_numpy(batch_u8).to(trainer.device), crop_h,
                       crop_w, train=False)
     g = torch.Generator().manual_seed(row_seed(seed, step, _STREAM_SAMPLE,
@@ -301,6 +362,8 @@ def _write_sheet(trainer: CouncilTrainer, state, batch_u8, image_dir: str,
     z = torch.randn((trainer.n, x.shape[0], trainer.cfg.gen.style_dim),
                     generator=g)
     x_t, mask = trainer.sample(state, x, direction=direction, z=z)
+    if not write:
+        return
     write_sample_sheet(image_dir, name, x.cpu().numpy(),
                        x_t.float().cpu().numpy(),
                        mask.float().cpu().numpy() if mask is not None
@@ -309,11 +372,12 @@ def _write_sheet(trainer: CouncilTrainer, state, batch_u8, image_dir: str,
 
 def _write_samples(trainer: CouncilTrainer, state, test_u8, train_u8,
                    image_dir: str, step: int, crop_h: int, crop_w: int,
-                   seed: int) -> None:
+                   seed: int, write: bool = True) -> None:
     """Per-member sample sheets of the test and train display batches
     (reference Council_Trainer.sample + utils.write_2images), one per
     direction under the same name, as the JAX package writes them."""
     for tag, batch in (("test", test_u8), ("train", train_u8)):
         for d in trainer.directions:
             _write_sheet(trainer, state, batch, image_dir,
-                         f"{tag}_{step:08d}", d, step, crop_h, crop_w, seed)
+                         f"{tag}_{step:08d}", d, step, crop_h, crop_w, seed,
+                         write)

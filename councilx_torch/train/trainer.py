@@ -20,6 +20,13 @@ discriminator phases' graphs on top of the translation's, and saves one
 full council forward per direction and step. With ``gen_member_chunks > 1``
 or another ``z_mode`` the fakes are computed under ``no_grad``.
 
+Multi-GPU (``councilx_torch/parallel``): one process per GPU, each running
+this step on its slice of the layout -- the members ``[member_offset,
+member_offset + n_local)`` and the rows of data shard ``data_index`` of
+``data_size`` -- with the collectives in five hooks that are identities
+here: :meth:`_gather_members`, :meth:`_council_dis`, :meth:`_reduce_grads`,
+:meth:`_all_ok` and :meth:`_reduce_metrics`.
+
 Not ported yet (raise ``NotImplementedError``): ``remat_stages`` and the
 VGG perceptual loss (``vgg_w > 0``).
 """
@@ -159,6 +166,10 @@ class CouncilTrainer:
             2 if self.conditional else 1)
         self.gen_tx, self.dis_tx, self.cdis_tx = make_optimizers(cfg)
         self.has_council = self.n > 1 and cfg.council.council_w > 0
+        # this process's slice of the layout (parallel/ narrows it): all
+        # members and the whole batch here
+        self.member_offset, self.n_local = 0, self.n
+        self.data_index, self.data_size = 0, 1
 
     # ------------------------------------------------------------------
     # modules and state
@@ -181,13 +192,32 @@ class CouncilTrainer:
                           num_scales=d.num_scales, pad_type=d.pad_type,
                           device=self.device)
 
+    def _make_member(self, grp: str):
+        if grp == "gen":
+            return self.make_gen()
+        return self.make_dis(self.cfg.data.input_dim_a if grp == "dis"
+                             else self.cdis_input_dim)
+
     def _make_members(self):
-        return {d: {"gen": [self.make_gen() for _ in range(self.n)],
-                    "dis": [self.make_dis(self.cfg.data.input_dim_a)
-                            for _ in range(self.n)],
-                    "cdis": [self.make_dis(self.cdis_input_dim)
-                             for _ in range(self.n)]}
+        """This trainer's members: ``n_local`` of each group and
+        direction."""
+        return {d: {grp: [self._make_member(grp)
+                          for _ in range(self.n_local)] for grp in GROUPS}
                 for d in self.directions}
+
+    def _local(self, seq: Sequence) -> list:
+        """This trainer's members of a list over all N members."""
+        return list(seq[self.member_offset:self.member_offset
+                        + self.n_local])
+
+    def _local_tensors(self, ts: Sequence, per_member: int) -> list:
+        """This trainer's entries of a group's tensors listed, as
+        :func:`group_params` lists them, over all N members."""
+        per_dir = self.n * per_member
+        lo = self.member_offset * per_member
+        hi = lo + self.n_local * per_member
+        return [t for di in range(len(self.directions))
+                for t in ts[di * per_dir + lo:di * per_dir + hi]]
 
     def _state(self, members, seed: int) -> TrainState:
         mods = {grp: {d: members[d][grp] for d in self.directions}
@@ -208,7 +238,12 @@ class CouncilTrainer:
         for d in self.directions:
             for grp in GROUPS:
                 init = self.cfg.init if grp == "gen" else "gaussian"
-                for m in members[d][grp]:
+                # every member's draws, in order; the members of other
+                # processes are drawn into modules that are dropped
+                for i in range(self.n):
+                    j = i - self.member_offset
+                    m = (members[d][grp][j] if 0 <= j < self.n_local
+                         else self._make_member(grp))
                     init_parameters(m, init, rng)
         z_seed = int(torch.randint(2 ** 62, (1,), generator=rng))
         return self._state(members, z_seed)
@@ -224,7 +259,7 @@ class CouncilTrainer:
                 if len(sds) != self.n:
                     raise ValueError(f"{d}/{grp}: {len(sds)} state dicts for "
                                      f"a council of {self.n}")
-                for m, sd in zip(members[d][grp], sds):
+                for m, sd in zip(members[d][grp], self._local(sds)):
                     m.load_state_dict(sd, strict=True)
         return self._state(members, seed)
 
@@ -238,19 +273,30 @@ class CouncilTrainer:
         state.step = int(payload["step"])
         state.generator.set_state(payload["generator"])
         for grp in GROUPS:
-            params = group_params(getattr(state, grp))
+            mods = getattr(state, grp)
+            params = group_params(mods)
+            per_member = len(list(mods[self.directions[0]][0].parameters()))
             saved = payload["opt"][grp]
+            local = {}
             for key in ("mu", "nu"):
-                if len(saved[key]) != len(params) or any(
-                        t.shape != p.shape
-                        for t, p in zip(saved[key], params)):
+                full = saved[key]
+                local[key] = self._local_tensors(full, per_member)
+                if len(full) != len(self.directions) * self.n * per_member \
+                        or any(t.shape != p.shape
+                               for t, p in zip(local[key], params)):
                     raise ValueError(f"snapshot: {grp} optimizer {key} does "
                                      f"not match the {grp} parameters")
             setattr(state, f"opt_{grp}", AdamState(
                 count=saved["count"].to(self.device, torch.int32),
-                mu=[t.to(self.device) for t in saved["mu"]],
-                nu=[t.to(self.device) for t in saved["nu"]]))
+                mu=[t.to(self.device) for t in local["mu"]],
+                nu=[t.to(self.device) for t in local["nu"]]))
         return state
+
+    def snapshot(self, state: TrainState) -> Optional[Dict[str, Any]]:
+        """The checkpoint payload of ``state`` (:meth:`TrainState.snapshot`)
+        in the one-process layout; None on a process that writes no
+        snapshot (parallel/)."""
+        return state.snapshot()
 
     # ------------------------------------------------------------------
     # model application
@@ -403,7 +449,8 @@ class CouncilTrainer:
         new_params, new_opt = tx.update(params, grads, opt)
         ok = torch.ones((), dtype=torch.float32, device=self.device)
         if self.cfg.skip_nonfinite_updates:
-            good = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+            good = self._all_ok(
+                torch.stack([torch.isfinite(g).all() for g in grads]).all())
 
             def sel(new, old):
                 return [torch.where(good, a, b) for a, b in zip(new, old)]
@@ -447,6 +494,49 @@ class CouncilTrainer:
                                  for _ in range(1, ratio)]
         return zs
 
+    def _local_zs(self, zs: Mapping[str, Any]) -> Dict[str, Any]:
+        """Global z codes (:meth:`draw_zs` at the global batch) -> this
+        trainer's (members, rows) block of each."""
+        def block(z):
+            b = z.shape[1] // self.data_size
+            r0 = self.data_index * b
+            return z[self.member_offset:self.member_offset + self.n_local,
+                     r0:r0 + b]
+
+        out: Dict[str, Any] = {}
+        for key, streams in zs.items():
+            if key == "cdis_repeat":
+                out[key] = [{d: block(z) for d, z in s.items()}
+                            for s in streams]
+            else:
+                out[key] = {d: block(z) for d, z in streams.items()}
+        return out
+
+    # -- the layout's hooks: identities on one process (parallel/) --------
+
+    def _gather_members(self, t: torch.Tensor) -> torch.Tensor:
+        """This trainer's members' (n_local, ...) stack -> all N members',
+        in member order."""
+        return t
+
+    def _council_dis(self, state: TrainState, d: str) -> Sequence[Callable]:
+        """All N council discriminators of direction ``d`` at their current
+        parameters, for the generators' agreement term."""
+        return state.cdis[d]
+
+    def _reduce_grads(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """This process's gradients of one group -> the step's."""
+        return grads
+
+    def _all_ok(self, good: torch.Tensor) -> torch.Tensor:
+        """This process's finite-gradient flag -> every process's."""
+        return good
+
+    def _reduce_metrics(self, metrics: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+        """This process's step metrics -> the step's."""
+        return metrics
+
     def _cdis_ratio(self) -> int:
         return max(1, self.cfg.council.council_dis_relative_iteration)
 
@@ -459,14 +549,18 @@ class CouncilTrainer:
                 for d in self.directions}
 
     def _cdis_update(self, state: TrainState, inputs, fakes):
+        """One council-discriminator update on ``fakes`` (all N members'
+        detached translations)."""
         params = group_params(state.cdis)
         loss = sum(council_dis_loss(
             state.cdis[d], fakes[d], inputs[d][0], self.gan_type,
-            self.conditional, remat=self.cfg.remat,
+            self.conditional, dis_offset=self.member_offset,
+            n_total=self.n, remat=self.cfg.remat,
             polarity=self.cfg.council.council_polarity)
             for d in self.directions)
         state.opt_cdis, ok = self._apply_if_finite(
-            params, _grads(loss, params), self.cdis_tx, state.opt_cdis)
+            params, self._reduce_grads(_grads(loss, params)), self.cdis_tx,
+            state.opt_cdis)
         return loss.detach(), ok
 
     def train_step(self, state: TrainState, x_a, x_b,
@@ -481,7 +575,8 @@ class CouncilTrainer:
         inputs = {"a2b": (x_a, x_b), "b2a": (x_b, x_a)}
         step = state.step
         if zs is None:
-            zs = self.draw_zs(state, x_a.shape[0])
+            zs = self.draw_zs(state, x_a.shape[0] * self.data_size)
+        zs = self._local_zs(zs)
         zs_gen = {d: self._to_device(zs["gen"][d]) for d in self.directions}
         z_mode = cfg.z_mode
         metrics: Dict[str, torch.Tensor] = {}
@@ -500,6 +595,8 @@ class CouncilTrainer:
                                 else zs["dis"])
         fakes_cdis = (self._fakes(state, inputs, zs["cdis"])
                       if z_mode == "per_phase" else fakes)
+        fakes_cdis = {d: self._gather_members(f)
+                      for d, f in fakes_cdis.items()}
 
         # ---- phase 1: council discriminators (reference dis_council_update)
         if self.has_council:
@@ -508,8 +605,9 @@ class CouncilTrainer:
                 loss_cdis, ok_cdis = self._cdis_update(state, inputs,
                                                        fakes_cdis)
                 for it in range(1, ratio):
-                    fakes_i = self._fakes(state, inputs,
-                                          zs["cdis_repeat"][it - 1])
+                    fakes_i = {d: self._gather_members(f) for d, f in
+                               self._fakes(state, inputs,
+                                           zs["cdis_repeat"][it - 1]).items()}
                     loss_cdis, ok_i = self._cdis_update(state, inputs,
                                                         fakes_i)
                     ok_cdis = ok_cdis * ok_i
@@ -533,7 +631,8 @@ class CouncilTrainer:
                                           inputs[d][1], step)
                        for d in self.directions)
         state.opt_dis, ok_dis = self._apply_if_finite(
-            params, _grads(loss_dis, params), self.dis_tx, state.opt_dis)
+            params, self._reduce_grads(_grads(loss_dis, params)),
+            self.dis_tx, state.opt_dis)
         metrics["loss_dis_adv"] = loss_dis.detach()
         if cfg.skip_nonfinite_updates:
             metrics["finite_dis"] = ok_dis
@@ -549,8 +648,10 @@ class CouncilTrainer:
             loss_gen, aux = 0.0, {}
             for d in self.directions:
                 ld, md = self._gen_loss_dir(
-                    state.gen[d], state.dis[d], state.cdis[d], inputs[d][0],
-                    zs_gen[d], step,
+                    state.gen[d], state.dis[d], self._council_dis(state, d),
+                    inputs[d][0], zs_gen[d], step,
+                    out_offset=self.member_offset,
+                    member_scale=self.n_local / self.n,
                     translated=translated[d] if translated else None)
                 loss_gen = loss_gen + ld
                 aux.update({f"{k}_{d}": v.detach() for k, v in md.items()})
@@ -558,13 +659,13 @@ class CouncilTrainer:
             loss_gen = loss_gen.detach()
         del translated
         state.opt_gen, ok_gen = self._apply_if_finite(
-            params, grads, self.gen_tx, state.opt_gen)
+            params, self._reduce_grads(grads), self.gen_tx, state.opt_gen)
         metrics["loss_gen_total"] = loss_gen
         metrics.update(aux)
         if cfg.skip_nonfinite_updates:
             metrics["finite_gen"] = ok_gen
         state.step += 1
-        return state, metrics
+        return state, self._reduce_metrics(metrics)
 
     def _gen_grads_chunked(self, state: TrainState, inputs, zs, step: int):
         """Gen-phase gradients over ``cfg.gen_member_chunks`` contiguous
@@ -575,7 +676,8 @@ class CouncilTrainer:
         ones; ``out_offset`` keeps the council diagonal global and
         ``member_scale`` rescales the mean-over-members mask losses."""
         chunks = self.cfg.gen_member_chunks
-        m = self.n // chunks
+        m = self.n_local // chunks
+        cdis = {d: self._council_dis(state, d) for d in self.directions}
         loss_gen = torch.zeros((), device=self.device)
         aux: Dict[str, torch.Tensor] = {}
         grads_by_param: Dict[int, torch.Tensor] = {}
@@ -584,8 +686,9 @@ class CouncilTrainer:
             loss = 0.0
             for d in self.directions:
                 ld, md = self._gen_loss_dir(
-                    state.gen[d][sl], state.dis[d][sl], state.cdis[d],
-                    inputs[d][0], zs[d][sl], step, out_offset=c * m,
+                    state.gen[d][sl], state.dis[d][sl], cdis[d],
+                    inputs[d][0], zs[d][sl], step,
+                    out_offset=self.member_offset + c * m,
                     member_scale=m / self.n)
                 loss = loss + ld
                 for k, v in md.items():
@@ -608,11 +711,15 @@ class CouncilTrainer:
                z=None):
         """Reference Council_Trainer.sample: every member's translation of
         x -> (x_t (N,B,H,W,C), mask (N,B,H,W,1) | None). ``z`` (N, B,
-        style_dim) or drawn from ``state.generator``."""
+        style_dim) or drawn from ``state.generator``. Under member
+        parallelism a collective: every process translates with its
+        members, and the outputs are gathered."""
         x = self._to_device(x)
         if z is None:
             z = torch.randn((self.n, x.shape[0], self.cfg.gen.style_dim),
                             generator=state.generator)
+        z = z[self.member_offset:self.member_offset + self.n_local]
         x_t, mask, _ = self._translate_members(state.gen[direction], x,
                                                self._to_device(z))
-        return x_t, mask
+        return (self._gather_members(x_t),
+                None if mask is None else self._gather_members(mask))

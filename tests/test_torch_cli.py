@@ -124,11 +124,18 @@ def test_translate_z_mode_writes_the_jax_cli_names(monkeypatch, setup, saved,
 
 
 def test_translate_refuses_data_parallel(setup):
+    """--data_parallel is ported (tests/test_torch_parallel_serve.py); as
+    the JAX CLI does, it refuses a batch that does not split evenly, and
+    more devices than the machine has."""
     _, cfg_path, folder, _, npz = setup
-    with pytest.raises(SystemExit, match="not ported yet"):
-        translate_cli.main(["--config", cfg_path, "--checkpoint", npz,
-                            "--input_folder", folder, "--output_folder",
-                            "unused", "--data_parallel", "2"])
+    common = ["--config", cfg_path, "--checkpoint", npz, "--input_folder",
+              folder, "--output_folder", "unused"]
+    with pytest.raises(SystemExit, match="not divisible"):
+        translate_cli.main(common + ["--data_parallel", "2",
+                                     "--batch_size", "3"])
+    with pytest.raises(SystemExit, match="need 64 devices"):
+        translate_cli.main(common + ["--data_parallel", "64",
+                                     "--batch_size", "64"])
 
 
 def _get(port, path):

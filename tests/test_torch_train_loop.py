@@ -9,7 +9,7 @@ through ``councilx_torch.train.loop.train`` and its CLI:
 * an async snapshot round-trips and the newest three are kept;
 * SIGTERM after the first step leaves a final, resumable snapshot and exit
   code 0;
-* what the loop does not take yet is refused.
+* what the loop does not take is refused.
 
 The sample-sheet helpers are held against the JAX package's.
 """
@@ -227,21 +227,28 @@ def test_sigterm_leaves_a_final_resumable_snapshot(tmp_path, data_root):
 
 @pytest.mark.parametrize("over,what", [
     ({"num_devices": 2}, "num_devices"),
-    ({"council_parallel": 2}, "council_parallel"),
-    ({"det_data_reduction": True}, "det_data_reduction"),
+    ({"num_devices": 2, "council_parallel": 2}, "council_parallel"),
+    ({"num_devices": 2, "det_data_reduction": True}, "det_data_reduction"),
     ({"vgg_w": 1.0}, "vgg_w")])
 def test_loop_refuses_what_is_not_ported(tmp_path, over, what):
+    """vgg_w is not ported; the multi-GPU layouts are, one process per GPU,
+    so one process asked for one refuses and names torchrun."""
     cfg = Config.from_dict({**TINY, **over})
-    with pytest.raises(NotImplementedError, match=what):
+    err, why = ((NotImplementedError, "not ported yet") if "vgg_w" in over
+                else (ValueError, "torchrun"))
+    with pytest.raises(err, match=what):
         loop.make_trainer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(err, match=why):
         loop.train(cfg, output_path=str(tmp_path), synthetic=True,
                    device="cpu")
+    assert not os.path.exists(tmp_path / "run")
 
 
 def test_train_cli_refuses_multi_host(tmp_path):
+    """A coordinator without the process count is refused, not trained
+    alone (the multi-process launch: test_torch_parallel_loop.py)."""
     cfg_path = _config_file(tmp_path, "unused")
-    with pytest.raises(SystemExit, match="not ported yet"):
+    with pytest.raises(SystemExit, match="--num_processes"):
         train_cli.main(["--config", cfg_path, "--coordinator",
                         "localhost:1234", "--device", "cpu"])
 

@@ -167,8 +167,12 @@ def test_checkpoint_formats_not_ported_are_rejected(council, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ({"data_parallel": 2}, "0", "not ported yet"),
-    ({"member_parallel": 2}, "0", "not ported yet"),
+    # --data_parallel and --member_parallel are ported
+    # (tests/test_torch_parallel_serve.py); the JAX CLI's rules hold: the
+    # buckets split evenly over the data axis, and member parallelism
+    # serves the whole council
+    ({"data_parallel": 3}, "0", "multiple of --data_parallel"),
+    ({"member_parallel": 2}, "0", "requires --member all"),
     # --calibration is ported; the JAX CLI refuses it with --member all
     ({"calibration": "q.npz"}, "all", "cannot use --calibration")])
 def test_build_engine_rejects_flags_not_ported(council, flag):
