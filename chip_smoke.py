@@ -102,6 +102,23 @@ Phases, in order; any failure raises and exits non-zero:
    steps each against the one-process step on ``cuda:0`` at the CPU tests'
    data-parallel tolerance, with img/s; the ``[multi-gpu]`` line names the
    layouts run and the ones this machine has too few cards for.
+12. complete (``[complete]``, run after phase 8, in its directory, before
+   phase 11): the JAX package's last features (:func:`phase_complete`).
+   (a) ``remat_stages``: 2 headline steps bit-equal to the plain step's
+   from the same weights, batch and z (cuDNN deterministic), with the
+   recompute's launch invariant (every forward launch twice, every
+   backward once: :func:`remat_stage_launches`), then 2 warm and 5 timed
+   steps of each: ms per step and peak memory, which must fall; (b) ``vgg_w:
+   1`` with a seeded random VGG16 ``.npz`` under ``build/``: 2 warm and 5
+   timed steps, finite metrics, ``loss_gen_vgg_a2b`` > 0, ms per step and
+   peak memory beside the plain step's, the VGG loss's own device ms; (c)
+   phase 7 with both options; (d) ``councilx_torch.tools.export_pt`` on
+   phase 8's step-8 snapshot: the three reference ``.pt`` files, and member
+   0 served through ``build_engine`` from the exported ``gen_*.pt``
+   bit-equal to it served from the snapshot at bucket 8; (e) ``MsImageDis``
+   with ``norm`` ``sn`` and ``bn`` at the headline width on the card
+   against the CPU module: logits in f32 and bf16, ``u`` and the running
+   statistics after a training-mode forward.
 
 Phase 3 also holds two inputs the kernels once refused: the norm backward
 at batch 128 (more groups than one cooperative launch holds: its plain
@@ -119,6 +136,7 @@ The line before the last is one JSON object describing every kernel; the
 last is ``{"ok": true, "device": {...}}``.
 """
 
+import copy
 import json
 import os
 import subprocess
@@ -140,6 +158,10 @@ from councilx_torch.inference.server import BatchingEngine
 from councilx_torch.inference.translate import (MemberShardedTranslator,
                                                 ShardedTranslator,
                                                 Translator, _u8_from_unit)
+from councilx_torch.nn.blocks import init_parameters
+from councilx_torch.nn.discriminator import MsImageDis
+from councilx_torch.nn.vgg import (compute_vgg_loss, init_random_vgg,
+                                   save_vgg_npz, vgg_target_features)
 from councilx_torch.ops import _build
 from councilx_torch.ops import conv3x3 as conv_ops
 from councilx_torch.ops import instance_norm as norm_ops
@@ -157,6 +179,7 @@ from councilx_torch.ops.quant import (conv_int8, conv_int8_reference,
 from councilx_torch.parallel.council_shard import CouncilShardTrainer
 from councilx_torch.parallel.mesh import (DataParallelTrainer,
                                           make_member_mesh, make_mesh)
+from councilx_torch.tools import export_pt
 from councilx_torch.tools.calibrate_quant import calibrate
 from councilx_torch.train.loop import make_trainer
 from councilx_torch.train.trainer import CouncilTrainer
@@ -1458,11 +1481,32 @@ def check_train_launches(got: dict, steps: int, where: str) -> None:
         raise AssertionError(f"{where} launches {got} != {want}")
 
 
-def phase_train_accuracy(card_str: str):
+# the forward launch counters, each made again by a stage's recompute
+FORWARD_COUNTERS = ("conv3x3_valid.launches", "conv3x3_valid.grad_launches",
+                    "instance_norm.launches", "instance_norm.affine_launches",
+                    "instance_norm.grad_launches",
+                    "instance_norm.affine_grad_launches")
+
+
+def remat_stage_launches(plain: dict) -> dict:
+    """The launch counts of train steps under ``remat_stages`` from those of
+    the same steps without it. Every conv and norm kernel site of a step
+    lies in a checkpointed stage (the content encoder's 7x7 block,
+    downsamples and resblocks; the decoder's resblocks; the style encoder,
+    which is not checkpointed, has none), and each stage's recompute runs
+    its forward once more under autograd: every forward count doubles, the
+    backward counts stay."""
+    return {k: 2 * v if k in FORWARD_COUNTERS else v
+            for k, v in plain.items()}
+
+
+def phase_train_accuracy(card_str: str, over=None,
+                         tag: str = "[train-accuracy]"):
     """Phase 7: the first two steps of a reduced config (council-2, 64px,
     gen dim 32, n_res 2, dis dim 16 with 2 layers and 2 scales, batch 2) on
     the card against the port on the CPU in f32 (the plain versions), from
-    the same weights, batch and z.
+    the same weights, batch and z. ``over``: settings added to the config
+    on both sides (phase 12's options), ``tag`` the lines' prefix.
 
     Tolerances on every metric, relative:
       f32 (parity mode) on the card: step 1 1e-4 -- the same math on the
@@ -1478,7 +1522,8 @@ def phase_train_accuracy(card_str: str):
     b = REDUCED["batch_size"]
     x_a, x_b = (rng.uniform(-1, 1, (b, hw, hw, 3)).astype(np.float32)
                 for _ in range(2))
-    cfg32 = Config.from_dict({**REDUCED, "parity_mode": True})
+    reduced = {**REDUCED, **(over or {})}
+    cfg32 = Config.from_dict({**reduced, "parity_mode": True})
     cpu = CouncilTrainer(cfg32, device="cpu")
     cpu_state = cpu.init_state(seed=1)
     sds = cpu_state.state_dicts()
@@ -1489,7 +1534,7 @@ def phase_train_accuracy(card_str: str):
         ref.append({k: float(v) for k, v in m.items()})
     for name, cfg, rtols, atol in (
             ("f32", cfg32, (1e-4, 1e-3), 0.0),
-            ("bf16", Config.from_dict({**REDUCED,
+            ("bf16", Config.from_dict({**reduced,
                                        "compute_dtype": "bfloat16"}),
              (3e-2, 3e-2), 1e-3)):
         gpu = CouncilTrainer(cfg, device="cuda")
@@ -1502,7 +1547,7 @@ def phase_train_accuracy(card_str: str):
             rel = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-12)
                    for k in want}
             worst = max(rel, key=rel.get)
-            log(f"[train-accuracy] card {name} step {step + 1} vs CPU f32: "
+            log(f"{tag} card {name} step {step + 1} vs CPU f32: "
                 f"worst metric {worst} rel {rel[worst]:.6g} (rtol "
                 f"{rtols[step]}, atol {atol}) [{card_str}]")
             for k in want:
@@ -2222,6 +2267,258 @@ def phase_multi_gpu(card_str: str) -> None:
         multi_train_spawned(card_str, ref_path, tmp)
 
 
+# phase 12: steps after the 2 bit-compared ones, warm and timed; the
+# discriminators' stateful norms; card vs CPU tolerances of their forward
+# (f32: other conv algorithms, TF32 off, through 5 layers; bf16: 8
+# significant bits over 5 rounded layers) and of their state after one
+# training-mode forward (f32 rounding of the same sums in another order)
+COMPLETE_WARM, COMPLETE_TIMED = 2, 5
+DIS_NORMS = ("sn", "bn")
+DIS_F32_REL, DIS_BF16_REL, DIS_STATE_TOL = 1e-4, 5e-2, 1e-5
+VGG_SEED = 12
+
+
+def write_random_vgg(path: str, seed: int = VGG_SEED) -> str:
+    """A seeded random VGG16 in the JAX package's ``.npz`` layout (what
+    ``vgg_model_path`` names; random weights price the loss, they do not
+    make it meaningful)."""
+    save_vgg_npz(path, init_random_vgg(torch.Generator().manual_seed(seed)))
+    return path
+
+
+def _timed_steps(trainer, state, x_a, x_b):
+    """COMPLETE_WARM + COMPLETE_TIMED steps -> (state, the timed steps'
+    metrics, their median ms, the peak memory over all of them)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, _, _ = host_steps(trainer, state, x_a, x_b, COMPLETE_WARM)
+    state, metrics, ms = host_steps(trainer, state, x_a, x_b, COMPLETE_TIMED)
+    return (state, metrics, float(np.median(ms)),
+            torch.cuda.max_memory_allocated())
+
+
+def vgg_device_ms(trainer, state, x_a, reps: int = 3) -> float:
+    """Median device ms of the VGG loss of one step on its own: the
+    members' translations of ``x_a`` in, the loss's forward (the input's
+    features once, each member's) and its backward to the translations,
+    between two CUDA events."""
+    cfg = trainer.cfg
+    with torch.no_grad():
+        z = torch.randn((trainer.n, BATCH, cfg.gen.style_dim),
+                        generator=torch.Generator().manual_seed(0))
+        x_in = x_a.to(trainer.dtype)
+        x_t = trainer._translate_members(state.gen["a2b"], x_in,
+                                         z.to("cuda", trainer.dtype))[0]
+    times = []
+    for _ in range(reps + 1):
+        x = x_t.detach().requires_grad_(True)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        with torch.no_grad():
+            target = vgg_target_features(trainer.vgg, x_in)
+        loss = sum(compute_vgg_loss(trainer.vgg, x_i, x_in, target)
+                   for x_i in x)
+        loss.backward()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times[1:]))
+
+
+def dis_norm_check(norm: str, card_str: str) -> None:
+    """Phase 12 (e): MsImageDis with ``norm`` at the headline width (dim 64,
+    4 layers, 3 scales, 256px, batch 8) on the card against the same module
+    on the CPU: one training-mode forward in f32 (logits, then ``u`` or the
+    running statistics, which that forward updated), then an eval-mode
+    forward of another batch in f32 and in bf16."""
+    d = HEADLINE["dis"]
+    cpu = MsImageDis(3, d["dim"], d["n_layer"], norm=norm,
+                     num_scales=d["num_scales"])
+    init_parameters(cpu, "gaussian", torch.Generator().manual_seed(12))
+    gpu = copy.deepcopy(cpu).cuda()
+    rng = np.random.default_rng(12)
+    xs = [torch.from_numpy(rng.uniform(-1, 1, (BATCH, HW, HW, 3))
+                           .astype(np.float32)) for _ in range(2)]
+
+    def rel_err(got, want):
+        return max(float((g.float().cpu() - w).abs().max())
+                   / float(w.abs().max()) for g, w in zip(got, want))
+
+    with torch.no_grad():
+        errs = {"train f32": rel_err(gpu(xs[0].cuda()), cpu(xs[0]))}
+        state = {k: float((v.float().cpu() - cpu.state_dict()[k].float())
+                          .abs().max())
+                 for k, v in gpu.state_dict().items()
+                 if k.endswith(("weight_u", "running_mean", "running_var"))}
+        cpu.eval()
+        gpu.eval()
+        want = cpu(xs[1])
+        errs["eval f32"] = rel_err(gpu(xs[1].cuda()), want)
+        errs["eval bf16"] = rel_err(gpu(xs[1].cuda().bfloat16()), want)
+    worst = max(state, key=state.get)
+    log(f"[complete] (e) MsImageDis norm={norm} (dim {d['dim']}, "
+        f"{d['n_layer']} layers, {d['num_scales']} scales, {HW}px, batch "
+        f"{BATCH}) card vs CPU f32, max error / max |logit|: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (tolerances {DIS_F32_REL} f32, {DIS_BF16_REL} bf16); state "
+        f"after one training forward: {len(state)} tensors, worst {worst} "
+        f"{state[worst]:.3g} (tolerance {DIS_STATE_TOL}) [{card_str}]")
+    if (errs["train f32"] > DIS_F32_REL or errs["eval f32"] > DIS_F32_REL
+            or errs["eval bf16"] > DIS_BF16_REL
+            or state[worst] > DIS_STATE_TOL):
+        raise AssertionError(f"dis norm={norm}: card vs CPU {errs}, state "
+                             f"{worst} {state[worst]}")
+
+
+def phase_complete(card_str: str, tmp: str) -> None:
+    """Phase 12 (``[complete]``, after phase 8, in its directory): the
+    JAX package's last features on the card. (a) ``remat_stages``: 2
+    headline steps bit-equal to the plain step's from the same weights,
+    batch and z (cuDNN deterministic for the phase), the recompute's launch
+    invariant (:func:`remat_stage_launches`), then warm and timed steps of
+    both: ms per step and peak memory, which must fall. (b) ``vgg_w: 1``
+    with a seeded random VGG16 ``.npz`` under ``build/``: warm and timed
+    steps, every metric finite, ``loss_gen_vgg_a2b`` > 0, ms per step and
+    peak memory beside the plain step's, the loss's own device ms. (c)
+    phase 7's reduced config with both options, card vs CPU at phase 7's
+    tolerances. (d) ``tools.export_pt`` on phase 8's step-8 snapshot: the
+    three files, and member 0 served from ``gen_*.pt`` through
+    ``build_engine`` bit-equal to member 0 served from the snapshot at
+    bucket 8. (e) :func:`dis_norm_check` for ``sn`` and ``bn``."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        vgg_path = write_random_vgg(os.path.join(tmp, "vgg16_random.npz"))
+        x_a, x_b = headline_batch("cuda")
+        sds = CouncilTrainer(Config.from_dict(HEADLINE), device="cpu"
+                             ).init_state(seed=0).state_dicts()
+        runs = {}
+        for name, over in (("plain", {}),
+                           ("remat_stages", {"remat_stages": True}),
+                           ("vgg_w", {"vgg_w": 1.0,
+                                      "vgg_model_path": vgg_path})):
+            trainer = CouncilTrainer(Config.from_dict({**HEADLINE, **over}),
+                                     device="cuda")
+            state = trainer.load_state(sds, seed=0)
+            run = {}
+            if name != "vgg_w":
+                reset_counts()
+                state, run["metrics"], run["ms"] = host_steps(
+                    trainer, state, x_a, x_b, MULTI_STEPS)
+                run["launches"] = _snapshot()
+                run["payload"] = trainer.snapshot(state)
+            reset_counts()
+            state, timed, run["median"], run["peak"] = _timed_steps(
+                trainer, state, x_a, x_b)
+            run["timed_launches"] = _snapshot()
+            if not all(np.isfinite(list(m.values())).all() for m in timed):
+                raise AssertionError(f"{name}: non-finite metrics {timed}")
+            if name == "vgg_w":
+                run["vgg_loss"] = [m["loss_gen_vgg_a2b"] for m in timed]
+                run["vgg_ms"] = vgg_device_ms(trainer, state, x_a)
+            runs[name] = run
+            del trainer, state
+            torch.cuda.empty_cache()
+        plain, remat, vgg = runs["plain"], runs["remat_stages"], runs["vgg_w"]
+        check_train_launches(plain["launches"], MULTI_STEPS, "plain")
+        steps = COMPLETE_WARM + COMPLETE_TIMED
+        for name in ("plain", "vgg_w"):
+            check_train_launches(runs[name]["timed_launches"], steps, name)
+        if remat["timed_launches"] != remat_stage_launches(
+                plain["timed_launches"]):
+            raise AssertionError(f"remat_stages launches over {steps} steps "
+                                 f"{remat['timed_launches']}")
+        want = remat_stage_launches(plain["launches"])
+        bad = payload_diff(remat["payload"], plain["payload"])
+        log(f"[complete] (a) remat_stages: {MULTI_STEPS} headline steps "
+            f"{'bit-equal' if not bad else 'NOT bit-equal'} to the plain "
+            f"step's (every parameter, Adam moment and metric; {len(bad)} "
+            f"tensors differ); launches {json.dumps(remat['launches'])}, "
+            f"the invariant (forward launches twice the plain step's, "
+            f"backward the same) {'held' if remat['launches'] == want else 'FAILED'}")
+        if bad or remat["metrics"] != plain["metrics"]:
+            raise AssertionError(f"remat_stages is not the plain step: "
+                                 f"{bad[:4]}")
+        if remat["launches"] != want:
+            raise AssertionError(f"remat_stages launches "
+                                 f"{remat['launches']} != {want}")
+        log(f"[complete] (a) then {COMPLETE_WARM} warm + {COMPLETE_TIMED} "
+            f"timed steps each (launches over them: phase 6's invariants "
+            f"for plain and vgg_w, twice the forwards for remat_stages): "
+            f"median ms/step plain {plain['median']:.6g}, "
+            f"remat_stages {remat['median']:.6g} "
+            f"({remat['median'] / plain['median']:.4g}x); peak memory plain "
+            f"{plain['peak'] / 2 ** 30:.6g} GiB, remat_stages "
+            f"{remat['peak'] / 2 ** 30:.6g} GiB "
+            f"({remat['peak'] / plain['peak']:.4g}x) [{card_str}]")
+        if remat["peak"] >= plain["peak"]:
+            raise AssertionError("remat_stages did not lower the peak memory")
+        if min(vgg["vgg_loss"]) <= 0:
+            raise AssertionError(f"loss_gen_vgg_a2b {vgg['vgg_loss']}")
+        log(f"[complete] (b) vgg_w 1 (random VGG16 {vgg_path}): "
+            f"{COMPLETE_WARM} warm + {COMPLETE_TIMED} timed steps, every "
+            f"metric finite, loss_gen_vgg_a2b "
+            f"{[round(v, 6) for v in vgg['vgg_loss']]}; median ms/step "
+            f"{vgg['median']:.6g} ({vgg['median'] / plain['median']:.4g}x "
+            f"plain), peak memory {vgg['peak'] / 2 ** 30:.6g} GiB "
+            f"({vgg['peak'] / plain['peak']:.4g}x plain); the VGG loss's "
+            f"own device ms per step (forward and backward, {N_MEMBERS} "
+            f"members + the input, CUDA events) {vgg['vgg_ms']:.6g} "
+            f"[{card_str}]")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    phase_train_accuracy(card_str, {"vgg_w": 1.0, "vgg_model_path": vgg_path,
+                                    "remat_stages": True},
+                         tag="[complete] (c) vgg_w 1 + remat_stages, reduced "
+                         "config:")
+    export_check(card_str, tmp)
+    for norm in DIS_NORMS:
+        dis_norm_check(norm, card_str)
+
+
+def export_check(card_str: str, tmp: str) -> None:
+    """Phase 12 (d): ``tools.export_pt`` on phase 8's last snapshot, and
+    member 0 served from the exported ``gen_*.pt`` and from the snapshot
+    through ``build_engine``, bit-equal at bucket 8."""
+    cfg_path = os.path.join(tmp, "headline.yaml")
+    end = CLI_STEPS + CLI_RESUME_STEPS
+    snap = os.path.join(tmp, "runs", "headline", "checkpoints",
+                        f"step_{end:08d}")
+    out = os.path.join(tmp, "export")
+    t0 = time.perf_counter()
+    files = export_pt.main(["--config", cfg_path, "--checkpoint", snap,
+                            "--out", out])
+    seconds = time.perf_counter() - t0
+    names = sorted(os.listdir(out))
+    want = sorted(f"{n}_{end:08d}.pt" for n in ("gen", "dis",
+                                                 "dis_council"))
+    if names != want:
+        raise AssertionError(f"export wrote {names}, want {want}")
+    cfg = Config.from_dict(HEADLINE)
+    rng = np.random.default_rng(12)
+    images = rng.integers(0, 256, (BATCH, HW, HW, 3), dtype=np.uint8)
+    z = rng.standard_normal((BATCH, cfg.gen.style_dim)).astype(np.float32)
+    outs = []
+    for ckpt in (snap, files["gen"]):
+        engine = build_engine(cfg, ckpt, "0", "a2b", max_batch=BATCH,
+                              max_delay_ms=200.0, warmup=False,
+                              device="cuda")
+        try:
+            outs.append(engine.translator.translate_u8io(
+                engine.params, images, z=z))
+        finally:
+            engine.stop()
+    if not np.array_equal(outs[0], outs[1]):
+        raise AssertionError("member 0 from the exported gen .pt differs "
+                             "from the snapshot's")
+    log(f"[complete] (d) export_pt of {snap}: {names} "
+        f"({sum(os.path.getsize(os.path.join(out, n)) for n in names)} "
+        f"bytes) in {seconds:.6g} s; member 0 through build_engine from "
+        f"the exported gen .pt bit-equal to the snapshot's at bucket "
+        f"{BATCH} [{card_str}]")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -2251,6 +2548,7 @@ def main():
     phase_train_accuracy(card_str)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
         cli_launches = phase_train_cli(card_str, tmp, step_ips)
+        phase_complete(card_str, tmp)
     phase_multi_gpu(card_str)
 
     norm_l = launches["instance_norm.launches"]

@@ -8,6 +8,14 @@ port's ``AdaINGen`` or ``MsImageDis`` with
 kernels (in, out) -> Linear (out, in), and the decoder's AdaIN layers get
 the ``running_mean``/``running_var`` buffers the reference registers but
 never reads.
+
+A discriminator with ``norm`` "sn" or "bn" also carries its variable
+collection (``stats``: the ``spectral_stats`` or ``batch_stats`` tree) into
+MUNIT's names (``nn/blocks.py``): ``SpectralConv_0`` kernel, bias and ``u``
+-> ``conv.module.weight_bar``, ``bias``, ``weight_u`` (and ``weight_v``
+zeros: no forward reads it); ``BatchNorm_0`` scale, bias and the ``mean``
+and ``var`` statistics -> ``norm.weight``, ``bias``, ``running_mean``,
+``running_var`` (and ``num_batches_tracked`` 0).
 """
 
 from __future__ import annotations
@@ -33,12 +41,29 @@ def _conv_kernel_inv(kernel: Array) -> Array:
 
 
 def _conv_block_inv(p: Params, prefix: str, norm: str = "none",
-                    adain_dim: int = 0) -> Dict[str, Array]:
+                    adain_dim: int = 0, stats: Params = None
+                    ) -> Dict[str, Array]:
+    if norm == "sn":
+        kernel = _k(p, "SpectralConv_0", "kernel")
+        kh, kw, i, _ = kernel.shape
+        return {
+            f"{prefix}.conv.module.bias": _k(p, "SpectralConv_0", "bias"),
+            f"{prefix}.conv.module.weight_u": _k(stats, "SpectralConv_0",
+                                                 "u"),
+            f"{prefix}.conv.module.weight_v": np.zeros(i * kh * kw,
+                                                       np.float32),
+            f"{prefix}.conv.module.weight_bar": _conv_kernel_inv(kernel)}
     out = {
         f"{prefix}.conv.weight": _conv_kernel_inv(_k(p, "Conv_0", "kernel")),
         f"{prefix}.conv.bias": _k(p, "Conv_0", "bias"),
     }
-    if norm == "ln":
+    if norm == "bn":
+        out[f"{prefix}.norm.weight"] = _k(p, "BatchNorm_0", "scale")
+        out[f"{prefix}.norm.bias"] = _k(p, "BatchNorm_0", "bias")
+        out[f"{prefix}.norm.running_mean"] = _k(stats, "BatchNorm_0", "mean")
+        out[f"{prefix}.norm.running_var"] = _k(stats, "BatchNorm_0", "var")
+        out[f"{prefix}.norm.num_batches_tracked"] = np.zeros((), np.int64)
+    elif norm == "ln":
         out[f"{prefix}.norm.gamma"] = _k(p, "MunitLayerNorm_0", "gamma")
         out[f"{prefix}.norm.beta"] = _k(p, "MunitLayerNorm_0", "beta")
     elif norm == "adain":
@@ -127,16 +152,26 @@ def export_adain_gen(params: Params, n_downsample: int = 2, n_res: int = 4,
 
 
 def export_ms_image_dis(params: Params, n_layer: int = 4,
-                        num_scales: int = 3) -> Dict[str, Array]:
+                        num_scales: int = 3, norm: str = "none",
+                        stats: Params = None) -> Dict[str, Array]:
     """Single-member MsImageDis parameter tree -> MUNIT state dict (numpy):
     ``cnns.{s}.{l}.conv.*`` for the 4x4 blocks, ``cnns.{s}.{n_layer}.*``
-    for the final 1x1 conv."""
+    for the final 1x1 conv. ``norm``: the inner blocks' norm; under "sn"
+    and "bn" ``stats`` is the member's ``spectral_stats`` or
+    ``batch_stats`` tree."""
+    if norm in ("sn", "bn") and stats is None:
+        raise ValueError(f"norm={norm!r} needs the member's "
+                         f"{'spectral' if norm == 'sn' else 'batch'}_stats")
     out: Dict[str, Array] = {}
     for s in range(num_scales):
         scale = params[f"scale_{s}"]
         for layer in range(n_layer):
-            out.update(_conv_block_inv(scale[f"Conv2dBlock_{layer}"],
-                                       f"cnns.{s}.{layer}"))
+            block = f"Conv2dBlock_{layer}"
+            inner = norm if layer else "none"
+            out.update(_conv_block_inv(
+                scale[block], f"cnns.{s}.{layer}", inner,
+                stats=(stats[f"scale_{s}"][block]
+                       if inner in ("sn", "bn") else None)))
         out[f"cnns.{s}.{n_layer}.weight"] = _conv_kernel_inv(
             _k(scale, "Conv_0", "kernel"))
         out[f"cnns.{s}.{n_layer}.bias"] = _k(scale, "Conv_0", "bias")

@@ -16,7 +16,19 @@ autograd Functions: on CUDA tensors they launch the Hopper kernels forward
 and backward; on CPU tensors their plain versions run. A block with
 ``quant`` (W8A8 serving, ``ops/quant.py``) runs its conv on the int8
 kernels instead, ahead of the 3x3 site, as in the JAX package. Every other
-op is the plain reference op.
+op is the plain reference op, the spectral-norm conv and batch norm
+included (the JAX package runs them as XLA ops).
+
+State of the ``sn`` and ``bn`` norms, in MUNIT's names: a spectral-norm
+block's conv is MUNIT's ``SpectralNorm(nn.Conv2d)``, so its keys are
+``conv.module.weight_bar`` (OIHW), ``conv.module.bias`` and the buffers
+``conv.module.weight_u`` (the JAX package's ``spectral_stats`` ``u``) and
+``conv.module.weight_v`` (written by each training forward in MUNIT's
+(I, kh, kw) order, read by none: the power iteration starts from ``u``). A
+batch-norm block's norm is MUNIT's ``nn.BatchNorm2d``: ``norm.weight`` and
+``norm.bias`` (flax's ``scale`` and ``bias``) and the buffers
+``norm.running_mean``, ``norm.running_var`` (``batch_stats`` ``mean`` and
+``var``) and ``norm.num_batches_tracked``.
 """
 
 from __future__ import annotations
@@ -101,13 +113,29 @@ def init_parameters(module: nn.Module, init: str,
                     generator: torch.Generator) -> None:
     """Initialise every parameter of ``module`` in registration order from
     ``generator``: conv/linear weights by ``init``, biases 0, LayerNorm
-    gamma ~ U[0, 1) and beta 0, PReLU slope 0.25."""
+    gamma ~ U[0, 1) and beta 0, PReLU slope 0.25; a spectral-norm conv's
+    ``u`` ~ N(0, 1); batch norm's scale 1, bias 0 and running statistics
+    (0, 1)."""
     kernel_init = make_kernel_init(init)
     for m in module.modules():
         if isinstance(m, (_Conv, _Linear)):
             _fill(m.weight, kernel_init, generator)
             with torch.no_grad():
                 m.bias.zero_()
+        elif isinstance(m, SpectralConv):
+            _fill(m.module.weight_bar, kernel_init, generator)
+            _fill(m.module.weight_u, lambda t, g: t.normal_(generator=g),
+                  generator)
+            with torch.no_grad():
+                m.module.bias.zero_()
+                m.module.weight_v.zero_()
+        elif isinstance(m, BatchNorm):
+            with torch.no_grad():
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+                m.num_batches_tracked.zero_()
         elif isinstance(m, MunitLayerNorm) and m.affine:
             _fill(m.gamma, lambda t, g: t.uniform_(0.0, 1.0, generator=g),
                   generator)
@@ -352,6 +380,107 @@ class MunitLayerNorm(nn.Module):
         return out
 
 
+class _SNConvParams(nn.Module):
+    """The conv that MUNIT's ``SpectralNorm`` wraps, as it leaves it:
+    ``weight_bar`` and ``bias`` parameters, ``weight_u``/``weight_v``
+    buffers."""
+
+    def __init__(self, in_dim: int, out_dim: int, kernel_size: int,
+                 device=None):
+        super().__init__()
+        self.weight_bar = nn.Parameter(torch.zeros(
+            out_dim, in_dim, kernel_size, kernel_size, device=device))
+        self.bias = nn.Parameter(torch.zeros(out_dim, device=device))
+        self.register_buffer("weight_u", torch.zeros(out_dim, device=device))
+        self.register_buffer("weight_v", torch.zeros(
+            in_dim * kernel_size * kernel_size, device=device))
+
+
+class SpectralConv(nn.Module):
+    """Conv with spectral normalization (reference networks.py::SpectralNorm;
+    ``councilx/nn/blocks.py::SpectralConv``), VALID on pre-padded NHWC x.
+
+    Every forward runs one power iteration from the stored ``u`` on the
+    kernel viewed as (out, kh*kw*in) -- the JAX package's HWIO kernel
+    transposed to (O, kh, kw, I), so the same matrix as the port's OIHW
+    weight permuted to (O, kh, kw, I) -- with ``u`` and ``v`` detached, eps
+    1e-12, ``sigma = u @ w_mat @ v``, and convolves with ``weight / sigma``
+    in x's dtype, bias added. ``u`` (and ``v``) are written back only in
+    training mode, as the JAX module writes ``spectral_stats`` only when
+    that collection is mutable."""
+
+    def __init__(self, in_dim: int, out_dim: int, kernel_size: int,
+                 stride: int = 1, eps: float = 1e-12, device=None):
+        super().__init__()
+        self.module = _SNConvParams(in_dim, out_dim, kernel_size, device)
+        self.stride = stride
+        self.eps = eps
+
+    def normalized_weight(self) -> torch.Tensor:
+        """``weight_bar / sigma`` (f32, OIHW), differentiable through
+        sigma; in training mode ``u`` and ``v`` are updated."""
+        w = self.module.weight_bar
+        o = w.shape[0]
+        w_mat = w.permute(0, 2, 3, 1).reshape(o, -1)
+        with torch.no_grad():
+            wd = w_mat.detach()
+            v = wd.t() @ self.module.weight_u
+            v = v / (torch.linalg.vector_norm(v) + self.eps)
+            u = wd @ v
+            u = u / (torch.linalg.vector_norm(u) + self.eps)
+        sigma = u @ (w_mat @ v)
+        if self.training:
+            with torch.no_grad():
+                self.module.weight_u.copy_(u)
+                kh, kw, i = w.shape[2], w.shape[3], w.shape[1]
+                self.module.weight_v.copy_(
+                    v.reshape(kh, kw, i).permute(2, 0, 1).reshape(-1))
+        return w / sigma
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _conv_nhwc(x, self.normalized_weight().to(x.dtype),
+                          self.module.bias.to(x.dtype), self.stride)
+
+
+class BatchNorm(nn.Module):
+    """Batch norm of NHWC y as the JAX block's ``nn.BatchNorm(
+    use_running_average=False, momentum=0.9, epsilon=1e-5)`` computes it
+    (MUNIT's ``nn.BatchNorm2d`` names): the batch's statistics over (N, H,
+    W) in f32, in eval mode too, flax's one-pass variance ``max(E[y^2] -
+    mean^2, 0)``; ``(y - mean) * (rsqrt(var + eps) * weight) + bias`` in
+    f32, cast back to y's dtype. In training mode the running statistics
+    become ``0.9 * old + 0.1 * batch``, with the biased batch variance (not
+    ``F.batch_norm``'s unbiased one)."""
+
+    def __init__(self, num_features: int, momentum: float = 0.9,
+                 eps: float = 1e-5, device=None):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features, device=device))
+        self.bias = nn.Parameter(torch.zeros(num_features, device=device))
+        self.register_buffer("running_mean",
+                             torch.zeros(num_features, device=device))
+        self.register_buffer("running_var",
+                             torch.ones(num_features, device=device))
+        self.register_buffer("num_batches_tracked",
+                             torch.zeros((), dtype=torch.long, device=device))
+
+    def forward(self, y: torch.Tensor) -> torch.Tensor:
+        x = y.float()
+        mean, var = norm_mean_var(x, (0, 1, 2), "one_pass")
+        if self.training:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean.reshape(-1))
+                self.running_var.copy_(m * self.running_var
+                                       + (1 - m) * var.reshape(-1))
+                self.num_batches_tracked += 1
+        out = (x - mean) * (torch.rsqrt(var + self.eps) * self.weight)
+        return (out + self.bias).to(y.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Conv2dBlock, LinearBlock
 # ---------------------------------------------------------------------------
@@ -360,7 +489,10 @@ class MunitLayerNorm(nn.Module):
 class Conv2dBlock(nn.Module):
     """pad -> conv -> norm -> activation (reference networks.py::Conv2dBlock).
 
-    norm: 'in' | 'ln' | 'adain' | 'none'. An 'adain' block takes its
+    norm: 'in' | 'ln' | 'adain' | 'bn' | 'sn' | 'none'; 'sn' runs the conv
+    as :class:`SpectralConv`, 'bn' follows the conv (with bias) with
+    :class:`BatchNorm` (state names in the module docstring). An 'adain'
+    block takes its
     (gamma, beta) pair as a call argument. A 3x3 stride-1 pad-1 conv runs
     on the conv3x3 kernel; the rest on ``F.conv2d``. The activation's dtype
     is the compute dtype.
@@ -407,20 +539,28 @@ class Conv2dBlock(nn.Module):
         self.padding = padding
         self.pad_type = pad_type
         self.norm_type = norm
-        self.conv = _Conv(in_dim, out_dim, kernel_size, device=device)
+        if norm == "sn":
+            if quant != "none":
+                raise ValueError("a spectral-norm block is not quantized")
+            self.conv = SpectralConv(in_dim, out_dim, kernel_size, stride,
+                                     device=device)
+        else:
+            self.conv = _Conv(in_dim, out_dim, kernel_size, device=device)
         if norm == "ln":
             self.norm = MunitLayerNorm(out_dim, precision=in_precision,
                                        stats=in_stats, device=device)
         elif norm == "adain":
             self.norm = AdaptiveInstanceNorm2d(out_dim, device=device)
-        elif norm not in ("in", "none"):
+        elif norm == "bn":
+            self.norm = BatchNorm(out_dim, device=device)
+        elif norm not in ("in", "sn", "none"):
             raise ValueError(f"unknown norm: {norm}")
         if activation == "prelu":
             self.activation = _PReLU(device=device)
         else:
             self.activation = make_activation(activation)
         self.kernel_site = (kernel_size == 3 and stride == 1
-                            and padding == 1)
+                            and padding == 1 and norm != "sn")
 
     def set_quant_stat(self, absmax: torch.Tensor) -> None:
         """The calibrated max |x| of the block input (0-d), and with it the
@@ -480,16 +620,17 @@ class Conv2dBlock(nn.Module):
             y = self._conv_w8a8(x)
         else:
             x = pad2d(x, self.padding, self.pad_type)
-            b = self.conv.bias.to(x.dtype)
-            if self.kernel_site:
-                y = conv3x3_valid(x, hwio_weight(self.conv.weight,
-                                                 x.dtype)) + b
+            if self.norm_type == "sn":
+                y = self.conv(x)
+            elif self.kernel_site:
+                y = conv3x3_valid(x, hwio_weight(self.conv.weight, x.dtype)
+                                  ) + self.conv.bias.to(x.dtype)
             else:
-                y = _conv_nhwc(x, self.conv.weight.to(x.dtype), b,
-                               self.stride)
+                y = _conv_nhwc(x, self.conv.weight.to(x.dtype),
+                               self.conv.bias.to(x.dtype), self.stride)
         if self.norm_type == "in":
             y = apply_instance_norm(y)
-        elif self.norm_type == "ln":
+        elif self.norm_type in ("ln", "bn"):
             y = self.norm(y)
         elif self.norm_type == "adain":
             if adain_params is None:

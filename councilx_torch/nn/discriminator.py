@@ -7,6 +7,12 @@ stride-2 reflect-padded convs with LeakyReLU 0.2 and channel doubling, then
 a 1x1 conv to one logit map. The same module is the council discriminator,
 with ``input_dim = 2 * channels`` when the council is conditional.
 
+``norm`` applies to the inner blocks (every 4x4 block but the first), as
+in the JAX module: "none" (every shipped config), "in", "ln", and the
+stateful "sn" (spectral-norm convs, ``u`` updated by training-mode
+forwards) and "bn" (batch norm, running statistics likewise); their state
+names are in ``nn/blocks.py``'s docstring.
+
 Parameter names are MUNIT's (``cnns.{s}.{l}.conv.weight``,
 ``cnns.{s}.{n_layer}.weight``), so reference state dicts and converted JAX
 trees load with ``load_state_dict(strict=True)``. No kernel site: the JAX
@@ -33,10 +39,8 @@ class MsImageDis(nn.Module):
                  num_scales: int = 3, pad_type: str = "reflect",
                  device=None):
         super().__init__()
-        if norm != "none":
-            raise NotImplementedError(
-                f"dis.norm={norm!r} is not ported yet to councilx_torch "
-                "(SpectralConv/BatchNorm); every shipped config uses 'none'")
+        if norm not in ("none", "in", "ln", "sn", "bn"):
+            raise ValueError(f"unknown discriminator norm: {norm}")
         self.input_dim = input_dim
         self.n_layer = n_layer
         self.cnns = nn.ModuleList()
@@ -46,7 +50,7 @@ class MsImageDis(nn.Module):
                 input_dim, d, 4, 2, 1, norm="none", activation=activ,
                 pad_type=pad_type, device=device)]
             for _ in range(n_layer - 1):
-                layers.append(Conv2dBlock(d, 2 * d, 4, 2, 1, norm="none",
+                layers.append(Conv2dBlock(d, 2 * d, 4, 2, 1, norm=norm,
                                           activation=activ,
                                           pad_type=pad_type, device=device))
                 d *= 2

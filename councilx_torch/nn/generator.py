@@ -15,6 +15,15 @@ state-dict keys are MUNIT's (``enc_content.model.3.model.0.model.1.conv.
 weight``, ``enc_style.model.4.weight``, ``dec.model.2.norm.gamma`` ...);
 the parameterless slots (avg pool, upsample) keep their index.
 
+``remat_stages`` (training only) recomputes the content encoder's and the
+decoder's stages in the backward, one ``torch.utils.checkpoint`` each, as
+the JAX package wraps them in ``nn.remat``: the encoder's 7x7 block, each
+downsample block and the resblock stack; the decoder's resblock stack, each
+upsample stage (the nearest-2x upsample and its 5x5 block, which the JAX
+package's ``Conv2dBlock`` holds as one) and the final 7x7 block. Not the
+style encoder (``councilx/nn/generator.py`` measured it raising the peak).
+No checkpoint is entered while gradients are off, so serving is unchanged.
+
 With the focus mask the decoder emits RGB + 1 mask channel;
 :func:`composite_with_mask` blends ``mask * rgb + (1 - mask) * input``.
 
@@ -33,10 +42,20 @@ from typing import Dict, List, Mapping, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from councilx_torch.nn.blocks import (MLP, AdaINPair, Conv2dBlock,
                                       GlobalAvgPool, ResBlocks, Upsample2x,
                                       _Conv)
+
+
+def run_stage(remat: bool, fn, *args):
+    """fn(*args), its activations recomputed in the backward when
+    ``remat`` and gradients are on (one checkpointed stage)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
 
 
 class ContentEncoder(nn.Module):
@@ -45,8 +64,10 @@ class ContentEncoder(nn.Module):
     def __init__(self, input_dim: int = 3, dim: int = 64,
                  n_downsample: int = 2, n_res: int = 4, activ: str = "relu",
                  pad_type: str = "reflect", quant: str = "none",
-                 quant_scope: str = "resblocks", device=None):
+                 quant_scope: str = "resblocks", remat_stages: bool = False,
+                 device=None):
         super().__init__()
+        self.remat_stages = remat_stages
         layers: List[nn.Module] = [Conv2dBlock(
             input_dim, dim, 7, 1, 3, norm="in", activation=activ,
             pad_type=pad_type, device=device)]
@@ -65,7 +86,7 @@ class ContentEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.model:
-            x = layer(x)
+            x = run_stage(self.remat_stages, layer, x)
         return x
 
 
@@ -116,10 +137,11 @@ class Decoder(nn.Module):
                  ln_stats: str = "two_pass",
                  mask_activation: str = "tanh_affine", quant: str = "none",
                  quant_scope: str = "resblocks", fuse_upsample: bool = True,
-                 device=None):
+                 remat_stages: bool = False, device=None):
         super().__init__()
         self.dim = dim
         self.n_res = n_res
+        self.remat_stages = remat_stages
         self.sigmoid_mask = (mask_activation == "sigmoid" and output_dim > 3)
         up_quant = quant if quant_scope == "heavy" else "none"
         # the quantized phase conv takes the upsample's input
@@ -142,6 +164,12 @@ class Decoder(nn.Module):
             pad_type=pad_type, device=device))
         self.model = nn.ModuleList(layers)
 
+    def _stage(self, layers, x: torch.Tensor) -> torch.Tensor:
+        for layer in layers:
+            if not (self.phase_upsample and isinstance(layer, Upsample2x)):
+                x = layer(x)
+        return x
+
     @staticmethod
     def num_adain_params(dim: int, n_res: int) -> int:
         """2 params x dim features x 2 AdaIN convs per resblock x n_res."""
@@ -155,11 +183,13 @@ class Decoder(nn.Module):
             beta = adain_vec[:, 2 * i * dim:(2 * i + 1) * dim]
             gamma = adain_vec[:, (2 * i + 1) * dim:(2 * i + 2) * dim]
             pairs.append((gamma, beta))
-        x = self.model[0](x, pairs)
-        for layer in self.model[1:]:
-            if self.phase_upsample and isinstance(layer, Upsample2x):
-                continue
-            x = layer(x)
+        x = run_stage(self.remat_stages, self.model[0], x, pairs)
+        # the upsample stages ((Upsample2x, 5x5 block) pairs), the 7x7 block
+        stages = [self.model[i:i + 2] for i in range(1, len(self.model) - 1,
+                                                     2)]
+        stages.append(self.model[-1:])
+        for stage in stages:
+            x = run_stage(self.remat_stages, self._stage, stage, x)
         if self.sigmoid_mask:
             x = torch.cat([torch.tanh(x[..., :3]), x[..., 3:]], dim=-1)
         return x
@@ -171,8 +201,8 @@ class AdaINGen(nn.Module):
     ``ln_precision``/``ln_stats`` set the decoder's MUNIT LayerNorm (see
     MunitLayerNorm); the IN/AdaIN sites always use the instance-norm
     kernel's numerics. ``quant``/``quant_scope``/``fuse_upsample``: the
-    W8A8 convs (module docstring); the state dict is the same in every
-    mode."""
+    W8A8 convs; ``remat_stages``: per-stage recompute (module docstring);
+    the state dict is the same in every mode."""
 
     def __init__(self, input_dim: int = 3, dim: int = 64, style_dim: int = 8,
                  n_downsample: int = 2, n_res: int = 4, activ: str = "relu",
@@ -181,21 +211,21 @@ class AdaINGen(nn.Module):
                  ln_precision: str = "f32", ln_stats: str = "two_pass",
                  mask_activation: str = "tanh_affine", quant: str = "none",
                  quant_scope: str = "resblocks", fuse_upsample: bool = True,
-                 device=None):
+                 remat_stages: bool = False, device=None):
         super().__init__()
         if quant_scope not in ("resblocks", "heavy"):
             raise ValueError(f"unknown quant_scope: {quant_scope}")
         output_dim = input_dim + (1 if focus_mask else 0)
         self.enc_content = ContentEncoder(input_dim, dim, n_downsample,
                                           n_res, activ, pad_type, quant,
-                                          quant_scope, device)
+                                          quant_scope, remat_stages, device)
         self.enc_style = StyleEncoder(input_dim, dim, style_dim,
                                       n_downsample, activ, pad_type, device)
         content_dim = self.enc_content.output_dim
         self.dec = Decoder(content_dim, output_dim, n_downsample, n_res,
                            activ, pad_type, ln_precision, ln_stats,
                            mask_activation, quant, quant_scope,
-                           fuse_upsample, device)
+                           fuse_upsample, remat_stages, device)
         self.mlp = MLP(style_dim, Decoder.num_adain_params(content_dim, n_res),
                        mlp_dim, mlp_n_blk, norm="none", activation=activ,
                        device=device)

@@ -27,8 +27,18 @@ member_offset + n_local)`` and the rows of data shard ``data_index`` of
 here: :meth:`_gather_members`, :meth:`_council_dis`, :meth:`_reduce_grads`,
 :meth:`_all_ok` and :meth:`_reduce_metrics`.
 
-Not ported yet (raise ``NotImplementedError``): ``remat_stages`` and the
-VGG perceptual loss (``vgg_w > 0``).
+``vgg_w > 0`` adds MUNIT's VGG16 perceptual loss (``nn/vgg.py``) with
+frozen weights from ``vgg_model_path``, outside the state and the
+optimizers, as the JAX trainer keeps ``vgg_params``. ``remat_stages``
+recomputes the generators' encoder and decoder stages in the backward
+(``nn/generator.py``); with ``remat`` the checkpoints nest.
+
+Refused on purpose: ``dis.norm`` ``sn`` and ``bn``. The port's
+``MsImageDis`` has both (held against the JAX modules), but the JAX trainer
+cannot train them either: it applies the discriminators with their
+``params`` alone (``councilx/train/trainer.py``, ``_dis_apply`` /
+``_cdis_apply``), so its first step misses the ``spectral_stats`` /
+``batch_stats`` collections.
 """
 
 from __future__ import annotations
@@ -47,6 +57,8 @@ from councilx_torch.losses.gan import gan_dis_loss, gan_gen_loss
 from councilx_torch.nn.blocks import init_parameters
 from councilx_torch.nn.discriminator import MsImageDis
 from councilx_torch.nn.generator import AdaINGen, composite_with_mask
+from councilx_torch.nn.vgg import (compute_vgg_loss, load_vgg,
+                                   vgg_target_features)
 from councilx_torch.train.optim import Adam, AdamState, make_optimizers
 
 GROUPS = ("gen", "dis", "cdis")
@@ -140,13 +152,14 @@ class CouncilTrainer:
     CPU tests pass ``device="cpu"``)."""
 
     def __init__(self, cfg: Config, device="cuda"):
-        if cfg.remat_stages:
-            raise NotImplementedError(
-                "remat_stages is not ported yet to councilx_torch; use remat")
-        if cfg.vgg_w or "vgg_w" in cfg.loss_schedules:
-            raise NotImplementedError(
-                "vgg_w > 0 (the VGG perceptual loss) is not ported yet to "
-                "councilx_torch")
+        if cfg.dis.norm in ("sn", "bn"):
+            raise ValueError(
+                f"dis.norm={cfg.dis.norm!r}: the discriminators' "
+                "spectral_stats/batch_stats are not trained, here as in the "
+                "JAX reference trainer, which applies the discriminators "
+                "with their params alone (councilx/train/trainer.py "
+                "_dis_apply/_cdis_apply) and fails at its first step; "
+                "nn.discriminator.MsImageDis has both norms")
         self.cfg = cfg
         self.device = torch.device(device)
         self.n = cfg.council.council_size
@@ -170,6 +183,16 @@ class CouncilTrainer:
         # members and the whole batch here
         self.member_offset, self.n_local = 0, self.n
         self.data_index, self.data_size = 0, 1
+        # MUNIT's VGG perceptual loss: frozen weights, in no state
+        self.vgg = None
+        if cfg.vgg_w:
+            path = cfg.extras.get("vgg_model_path")
+            if not path:
+                raise ValueError(
+                    "vgg_w > 0 requires extras.vgg_model_path (a converted "
+                    "VGG16 .npz, see tools/convert_vgg_pt.py, or a torch "
+                    "VGG16 state dict)")
+            self.vgg = load_vgg(path, device=self.device)
 
     # ------------------------------------------------------------------
     # modules and state
@@ -183,7 +206,7 @@ class CouncilTrainer:
             pad_type=g.pad_type, mlp_dim=g.mlp_dim, mlp_n_blk=g.mlp_n_blk,
             focus_mask=self.focus, ln_precision=self.ln_precision,
             ln_stats=self.ln_stats, mask_activation=self.mask_activation,
-            device=self.device)
+            remat_stages=cfg.remat_stages, device=self.device)
 
     def make_dis(self, input_dim: int) -> MsImageDis:
         d = self.cfg.dis
@@ -423,6 +446,15 @@ class CouncilTrainer:
             m["loss_gen_recon_s"] = loss_rs
             total = total + self._w("recon_s_w", cfg.recon_s_w,
                                     step) * loss_rs
+
+        if self.vgg is not None:
+            # x_in carries no gradient: its features once, not per member
+            with torch.no_grad():
+                target = vgg_target_features(self.vgg, x_in)
+            loss_vgg = sum(compute_vgg_loss(self.vgg, x_i, x_in, target)
+                           for x_i in x_t)
+            m["loss_gen_vgg"] = loss_vgg
+            total = total + self._w("vgg_w", cfg.vgg_w, step) * loss_vgg
 
         if cfg.recon_c_w:
             c_rec = torch.stack([self._run(gen.encode_content, x_i)

@@ -313,3 +313,65 @@ def test_quant_ragged_cases_cover_the_edges():
     assert {c[4] for c in cases} == {1, 2}
     assert {c[0][3] for c in cases} == {16, 64, 128, 256}
     assert {c[5] for c in cases} == {8, 24, 128, 512}
+
+
+def test_write_random_vgg_gives_26_tensors_both_loaders_accept(tmp_path):
+    """Phase 12 (b)'s random VGG16: the JAX package's .npz layout, 13 convs'
+    kernels and biases, read by the port's loader and the JAX package's,
+    the same on every call."""
+    import numpy as np
+
+    from councilx.nn.vgg import load_vgg_npz as jload
+    from councilx_torch.nn import vgg
+
+    a = chip_smoke.write_random_vgg(str(tmp_path / "a.npz"))
+    b = chip_smoke.write_random_vgg(str(tmp_path / "b.npz"))
+    with np.load(a) as fa, np.load(b) as fb:
+        assert len(fa.files) == 26
+        assert all(np.array_equal(fa[k], fb[k]) for k in fa.files)
+        assert fa["conv1_1/kernel"].shape == (3, 3, 3, 64)
+    port = vgg.load_vgg(a, device="cpu")
+    jax_tree = jload(a)
+    assert sorted(jax_tree) == sorted(name for name, _ in port.named_children())
+    for name, conv in port.named_children():
+        np.testing.assert_array_equal(
+            conv.weight.permute(2, 3, 1, 0).numpy(),
+            np.asarray(jax_tree[name]["kernel"]))
+
+
+def test_remat_stage_launches_double_the_forward_counts():
+    """Phase 12 (a)'s invariant over 2 headline steps: phase 6's counts
+    (32 conv and 38 norm sites, 16 of them AdaIN, per member and step, 4
+    members) with every forward counter doubled by the stages' recompute
+    and the backward ones unchanged."""
+    steps, members = chip_smoke.MULTI_STEPS, chip_smoke.N_MEMBERS
+    plain = {"conv3x3_valid.launches": 0, "conv3x3_valid.grad_launches": 0,
+             "conv3x3_dgrad.launches": 0, "conv3x3_wgrad.launches": 0,
+             "instance_norm.launches": 0, "instance_norm.grad_launches": 0,
+             "instance_norm.affine_launches": 0,
+             "instance_norm.affine_grad_launches": 0,
+             "instance_norm_backward.launches": 0,
+             "instance_norm_backward.affine_launches": 0,
+             "conv_int8.launches": 0}
+    conv, norm, adain = (n * steps * members for n in (32, 38, 16))
+    plain.update({
+        "conv3x3_valid.launches": conv, "conv3x3_valid.grad_launches": conv,
+        "conv3x3_dgrad.launches": conv, "conv3x3_wgrad.launches": conv,
+        "instance_norm.launches": norm, "instance_norm.grad_launches": norm,
+        "instance_norm.affine_launches": adain,
+        "instance_norm.affine_grad_launches": adain,
+        "instance_norm_backward.launches": norm,
+        "instance_norm_backward.affine_launches": adain})
+    chip_smoke.check_train_launches(plain, steps, "plain")
+    got = chip_smoke.remat_stage_launches(plain)
+    assert got["conv3x3_valid.launches"] == got[
+        "conv3x3_valid.grad_launches"] == 2 * 256 == 512
+    assert got["instance_norm.launches"] == 2 * 304
+    assert got["instance_norm.affine_grad_launches"] == 2 * 128
+    assert got["conv3x3_dgrad.launches"] == got["conv3x3_wgrad.launches"] \
+        == 256
+    assert got["instance_norm_backward.launches"] == 304
+    assert got["instance_norm_backward.affine_launches"] == 128
+    assert got["conv_int8.launches"] == 0
+    with pytest.raises(AssertionError):
+        chip_smoke.check_train_launches(got, steps, "remat_stages")

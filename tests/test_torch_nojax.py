@@ -57,5 +57,7 @@ def test_port_imports_without_jax_or_councilx():
                  "councilx_torch.ops.quant",
                  "councilx_torch.ops.upsample_conv",
                  "councilx_torch.tools.calibrate_quant",
-                 "councilx_torch.tools.quant_quality"):
+                 "councilx_torch.tools.quant_quality",
+                 "councilx_torch.nn.vgg",
+                 "councilx_torch.tools.export_pt"):
         assert name in r.stdout, name

@@ -73,10 +73,18 @@ def test_remat_and_member_chunks_match_the_plain_step(over, exact):
 
 
 def test_not_ported_options_raise():
-    for over in (dict(remat_stages=True), dict(vgg_w=1.0)):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+    """Every option of the JAX trainer is ported; what the port still
+    refuses, the JAX trainer cannot do either: vgg_w without its weights,
+    and the stateful discriminator norms (tests/test_torch_norm_sn_bn.py
+    shows the JAX step failing on them)."""
+    for over, what in ((dict(vgg_w=1.0), "vgg_model_path"),
+                       (dict(dis={"norm": "sn"}), "spectral_stats"),
+                       (dict(dis={"norm": "bn"}), "batch_stats")):
+        with pytest.raises(ValueError, match=what):
             CouncilTrainer(Config.from_dict(raw_config(**over)),
                            device="cpu")
+    for over in (dict(remat_stages=True), dict(dis={"norm": "in"})):
+        CouncilTrainer(Config.from_dict(raw_config(**over)), device="cpu")
 
 
 def test_trainer_defaults_to_the_card():

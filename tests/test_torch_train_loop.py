@@ -231,10 +231,11 @@ def test_sigterm_leaves_a_final_resumable_snapshot(tmp_path, data_root):
     ({"num_devices": 2, "det_data_reduction": True}, "det_data_reduction"),
     ({"vgg_w": 1.0}, "vgg_w")])
 def test_loop_refuses_what_is_not_ported(tmp_path, over, what):
-    """vgg_w is not ported; the multi-GPU layouts are, one process per GPU,
-    so one process asked for one refuses and names torchrun."""
+    """vgg_w without its vgg_model_path is refused, as the JAX trainer
+    refuses it; the multi-GPU layouts are ported, one process per GPU, so
+    one process asked for one refuses and names torchrun."""
     cfg = Config.from_dict({**TINY, **over})
-    err, why = ((NotImplementedError, "not ported yet") if "vgg_w" in over
+    err, why = ((ValueError, "vgg_model_path") if "vgg_w" in over
                 else (ValueError, "torchrun"))
     with pytest.raises(err, match=what):
         loop.make_trainer(cfg, device="cpu")
