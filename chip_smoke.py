@@ -119,12 +119,28 @@ Phases, in order; any failure raises and exits non-zero:
    with ``norm`` ``sn`` and ``bn`` at the headline width on the card
    against the CPU module: logits in f32 and bf16, ``u`` and the running
    statistics after a training-mode forward.
+13. engines (``[engines]``, run after phase 7): the JAX generator's conv
+   engines at full width (:func:`phase_engines`). Member 0 of the flagship
+   model at bucket 8 under ``ENGINE_SERVE`` (the reference route, the JAX
+   defaults, ``upsample_engine`` phase and ln_fused, the defaults with
+   ``resblock_fuse_pad``): bf16 within phase 5's tolerances of the card's
+   reference route at the same bucket and of the CPU f32 Translator of the
+   same setting on 2 images; K1/norm/AdaIN launches per forward; wall ms
+   per call, kernel and gather ms under the profiler. The headline step
+   under ``ENGINE_TRAIN`` (the reference route, the defaults, phase +
+   resblock_fuse_pad): ms per step over 10 after 2, kernel and gather ms,
+   launches (K1 more by the phase convs), peak memory; then phase 7's
+   reduced config in f32 outside parity mode under the last of them, card
+   against CPU at phase 7's f32 tolerances. Every other phase runs the JAX
+   defaults (phase_fused 7x7 convs, the dilated upsample).
 
 Phase 3 also holds two inputs the kernels once refused: the norm backward
 at batch 128 (more groups than one cooperative launch holds: its plain
 launch) and the conv, dgrad and wgrad at C = 12, O = 20 (channels padded to
 multiples of 8 around the same kernels); the eval path's kernels at
 its batch of 16 (the conv, the norm forward at its three sites, AdaIN);
+K1, K1' and K2 at the conv engines' shapes (:func:`engine_conv_cases`: the
+two upsample phase convs, and the resblock conv at a zero pad of 1);
 and the W8A8 kernels at phase 10's five conv sites (:func:`quant_cases`):
 Q1 (int8 conv) bit-equal in its int32 accumulator and its bf16 (and, at
 the resblock site, f32) output, Q2 (activation quantize) bit-equal in its
@@ -167,6 +183,8 @@ from councilx_torch.ops import conv3x3 as conv_ops
 from councilx_torch.ops import instance_norm as norm_ops
 from councilx_torch.ops.conv3x3 import (conv3x3_dgrad,
                                         conv3x3_dgrad_reference,
+                                        conv3x3_same_zero,
+                                        conv3x3_same_zero_reference,
                                         conv3x3_valid, conv3x3_valid_reference,
                                         conv3x3_wgrad, conv3x3_wgrad_reference,
                                         hwio_weight)
@@ -255,8 +273,15 @@ SERVE_LAYOUTS = (("ShardedTranslator D=2", 2, 1),
 CUDA_SOURCES = ("conv3x3", "conv3x3_wgrad", "instance_norm_fwd",
                 "instance_norm_bwd", "quant_act", "conv_int8")
 # kernels whose two launches on the same inputs must be bit-equal
-DETERMINISTIC = ("conv3x3_wgrad", "instance_norm", "adain",
-                 "instance_norm_bwd", "adain_bwd")
+DETERMINISTIC = ("conv3x3_wgrad", "conv3x3_wgrad_pad1", "instance_norm",
+                 "adain", "instance_norm_bwd", "adain_bwd")
+# phase 3's K1/K1'/K2 at the conv engines' shapes, (B, H, W, C, O) of the
+# forward conv: the upsample engines' phase conv (3x3 to 4x the block's
+# outputs on the pre-upsample input replicate-padded by 1), and the
+# resblock conv at a zero pad of 1 (resblock_fuse_pad's strips interior)
+PHASE_CONV_SITES = {"up1": (BATCH, 64, 64, 256, 512),
+                    "up2": (BATCH, 128, 128, 128, 256)}
+PAD1_SITE = (BATCH, 64, 64, 256, 256)
 # the norm sites of the serving and training paths (the 7x7 block's
 # output, the second downsample's, the resblocks'), at bucket 8
 NORM_SHAPES = ((BATCH, 64, 64, 256), (BATCH, 128, 128, 128),
@@ -315,6 +340,10 @@ QUANT_PER_FWD = {"resblocks": 16, "heavy": 20}
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
 CONV_KERNELS = ("conv3x3", "conv3x3_dgrad", "conv3x3_wgrad")
+# the same three kernels at a zero pad of 1 on the unpadded input x (B, H,
+# W, C) of the "same" conv (the strips engine's interior)
+PAD1_KERNELS = ("conv3x3_same_zero", "conv3x3_dgrad_pad1",
+                "conv3x3_wgrad_pad1")
 # per norm kernel: f32 operations per element (counted from the plain
 # versions' arithmetic), full-size tensors moved (x and y; dy, x and dx)
 # and f32 per-(sample, channel) vectors moved (mean and rstd; gamma and
@@ -331,12 +360,14 @@ def kernel_work(name: str, shape, esize: int = 2):
     (B, H+2, W+2, C) x k (3, 3, C, O) -> y (B, H, W, O); the dgrad reads g
     (B, H, W, O) and k and writes d(xp), the wgrad reads xp and g and
     writes dk: the same three tensors and the same 2*B*H*W*9C*O operations
-    (the dgrad's padded form would run 2*B*(H+2)*(W+2)*9*O*C). Norm
+    (the dgrad's padded form would run 2*B*(H+2)*(W+2)*9*O*C); at pad 1
+    (``PAD1_KERNELS``) the input x is (B, H, W, C), unpadded. Norm
     kernels: ``shape`` is (B, H, W, C)."""
-    if name in CONV_KERNELS:
+    if name in CONV_KERNELS + PAD1_KERNELS:
         b, h, w, c, o = shape
         ops = 2 * b * h * w * 9 * c * o
-        elems = b * (h + 2) * (w + 2) * c + b * h * w * o + 9 * c * o
+        hx, wx = (h, w) if name in PAD1_KERNELS else (h + 2, w + 2)
+        elems = b * hx * wx * c + b * h * w * o + 9 * c * o
         return ops, esize * elems, "bf16" if esize == 2 else "f32"
     if name == "conv_int8":
         # shape: a QUANT_SITES entry; int8 x (padded) and weight read, y
@@ -512,15 +543,6 @@ def phase_kernels(g: torch.Generator, card_str: str) -> dict:
             is part of the timed call;
       instance_norm_bwd / adain_bwd: the autograd backward of those two
             calls (only the backward is timed)."""
-    results = {}
-    tol_rel = {("conv", torch.bfloat16): 2 ** -6,
-               ("conv", torch.float32): 1e-4,
-               ("wgrad", torch.bfloat16): 2 ** -7,
-               ("wgrad", torch.float32): 1e-4,
-               ("norm", torch.bfloat16): 2 ** -6,
-               ("norm", torch.float32): 1e-5,
-               ("norm_bwd", torch.bfloat16): 2 ** -6,
-               ("norm_bwd", torch.float32): 1e-4}
     cases = []
     conv_shape = (BATCH, 64, 64, 256, 256)
     for dt in (torch.bfloat16, torch.float32):
@@ -608,7 +630,27 @@ def phase_kernels(g: torch.Generator, card_str: str) -> dict:
                     lambda out=out, leaves=leaves, dyl=dyl:
                         torch.autograd.grad(out, leaves, dyl,
                                             retain_graph=True)))
-    cases += repaired_cases(g) + eval_batch_cases(g)
+    cases += repaired_cases(g) + eval_batch_cases(g) + engine_conv_cases(g)
+    return run_cases(cases, card_str)
+
+
+# phase 3's tolerances by (kind, dtype), relative to the largest |plain|
+# value (phase_kernels' docstring)
+TOL_REL = {("conv", torch.bfloat16): 2 ** -6, ("conv", torch.float32): 1e-4,
+           ("wgrad", torch.bfloat16): 2 ** -7,
+           ("wgrad", torch.float32): 1e-4,
+           ("norm", torch.bfloat16): 2 ** -6, ("norm", torch.float32): 1e-5,
+           ("norm_bwd", torch.bfloat16): 2 ** -6,
+           ("norm_bwd", torch.float32): 1e-4}
+
+
+def run_cases(cases: list, card_str: str) -> dict:
+    """Phase 3's check of each case (name, kind, dtype, shape, work,
+    kernel, plain, library) against its plain version at ``TOL_REL``,
+    timed in turns beside its library call and its bound; the
+    ``DETERMINISTIC`` ones launched twice, bit-equal. Returns the results
+    by (name, dtype name, shape)."""
+    results = {}
     for name, kind, dt, shape, work, kern, plain, library in cases:
         got = kern()
         torch.cuda.synchronize()
@@ -620,8 +662,8 @@ def phase_kernels(g: torch.Generator, card_str: str) -> dict:
             pairs = [(got, ref)]
         # each output against its own largest value; the forward's f32
         # statistics at the f32 tolerance
-        rels = [tol_rel[(kind, dt)]] + [
-            tol_rel[(kind, torch.float32 if kind == "norm" else dt)]] * (
+        rels = [TOL_REL[(kind, dt)]] + [
+            TOL_REL[(kind, torch.float32 if kind == "norm" else dt)]] * (
                 len(pairs) - 1)
         errs = [(a.float() - b.float()).abs().max().item() for a, b in pairs]
         tols = [r * b.float().abs().max().item()
@@ -698,6 +740,68 @@ def eval_batch_cases(g: torch.Generator) -> list:
                   lambda: norm_ops._forward(x, gm, bt, 1e-5),
                   lambda: instance_norm_forward_reference(x, gm, bt),
                   lambda: adain_lib(x, gm, bt)))
+    return cases
+
+
+def engine_conv_cases(g: torch.Generator) -> list:
+    """Phase 3's cases at the conv engines' shapes: K1, K1' and K2 at both
+    upsample phase convs (bf16, ``PHASE_CONV_SITES``), and at a zero pad of
+    1 on the unpadded resblock input (``PAD1_SITE``, bf16 and f32): the
+    forward ``conv3x3_same_zero``, its dgrad at pad 1 and K2 with the pad
+    in its loads. Same tolerances as the main shapes; library calls
+    F.conv2d and aten.convolution_backward at the same padding."""
+    cases = []
+
+    def conv_bwd(gn, xn, wn, pad, mask):
+        return lambda: torch.ops.aten.convolution_backward(
+            gn, xn, wn, None, [1, 1], [pad, pad], [1, 1], False, [0, 0], 1,
+            mask)
+
+    def operands(b, hx, wx, c, o, dt):
+        x = torch.randn(b, hx, wx, c, device="cuda", generator=g).to(dt)
+        k = hwio_weight(torch.randn(o, c, 3, 3, device="cuda", generator=g)
+                        / (9 * c) ** 0.5, dt)
+        wn = k.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
+        return x, k, x.permute(0, 3, 1, 2), wn
+
+    dt = torch.bfloat16
+    for site, work in PHASE_CONV_SITES.items():
+        b, h, w, c, o = work
+        xp, k, xn, wn = operands(b, h + 2, w + 2, c, o, dt)
+        gy = torch.randn(b, h, w, o, device="cuda", generator=g).to(dt)
+        gn = gy.permute(0, 3, 1, 2)
+        tag = f"{site} phase conv"
+        cases += [
+            ("conv3x3", "conv", dt, f"{tag} xp {tuple(xp.shape)} -> {o}",
+             work, lambda xp=xp, k=k: conv3x3_valid(xp, k),
+             lambda xp=xp, k=k: conv3x3_valid_reference(xp, k),
+             lambda xn=xn, wn=wn: F.conv2d(xn, wn)),
+            ("conv3x3_dgrad", "conv", dt, f"{tag} g {tuple(gy.shape)}", work,
+             lambda gy=gy, k=k: conv3x3_dgrad(gy, k),
+             lambda gy=gy, k=k: conv3x3_dgrad_reference(gy, k),
+             conv_bwd(gn, xn, wn, 0, [True, False, False])),
+            ("conv3x3_wgrad", "wgrad", dt, f"{tag} xp {tuple(xp.shape)}",
+             work, lambda xp=xp, gy=gy, dt=dt: conv3x3_wgrad(xp, gy, dt),
+             lambda xp=xp, gy=gy: conv3x3_wgrad_reference(xp, gy),
+             conv_bwd(gn, xn, wn, 0, [False, True, False]))]
+    b, h, w, c, o = PAD1_SITE
+    for dt in (torch.bfloat16, torch.float32):
+        x, k, xn, wn = operands(b, h, w, c, o, dt)
+        gy = torch.randn(b, h, w, o, device="cuda", generator=g).to(dt)
+        gn = gy.permute(0, 3, 1, 2)
+        cases += [
+            ("conv3x3_same_zero", "conv", dt, f"pad 1 x {tuple(x.shape)}",
+             PAD1_SITE, lambda x=x, k=k: conv3x3_same_zero(x, k),
+             lambda x=x, k=k: conv3x3_same_zero_reference(x, k),
+             lambda xn=xn, wn=wn: F.conv2d(xn, wn, padding=1)),
+            ("conv3x3_dgrad_pad1", "conv", dt, f"pad 1 g {tuple(gy.shape)}",
+             PAD1_SITE, lambda gy=gy, k=k: conv3x3_dgrad(gy, k, 1),
+             lambda gy=gy, k=k: conv3x3_dgrad_reference(gy, k, 1),
+             conv_bwd(gn, xn, wn, 1, [True, False, False])),
+            ("conv3x3_wgrad_pad1", "wgrad", dt, f"pad 1 x {tuple(x.shape)}",
+             PAD1_SITE, lambda x=x, gy=gy, dt=dt: conv3x3_wgrad(x, gy, dt, 1),
+             lambda x=x, gy=gy: conv3x3_wgrad_reference(x, gy, 1),
+             conv_bwd(gn, xn, wn, 1, [False, True, False]))]
     return cases
 
 
@@ -1460,12 +1564,16 @@ def phase_train(card_str: str) -> dict:
     return got, BATCH * TIMED_STEPS / seconds
 
 
-def check_train_launches(got: dict, steps: int, where: str) -> None:
+def check_train_launches(got: dict, steps: int, where: str,
+                         conv_per_member: int = TRAIN_CONV_PER_MEMBER
+                         ) -> None:
     """The launch invariants of ``steps`` headline train steps: every
     kernel site ran under autograd, and every forward under autograd had
-    its backward (conv fwd = dgrad = wgrad, norm fwd = bwd)."""
+    its backward (conv fwd = dgrad = wgrad, norm fwd = bwd).
+    ``conv_per_member``: K1's sites per member and step (more under the
+    phase upsample engines: :func:`engine_conv_per_fwd`)."""
     forwards = steps * N_MEMBERS
-    conv = TRAIN_CONV_PER_MEMBER * forwards
+    conv = conv_per_member * forwards
     norm = TRAIN_NORM_PER_MEMBER * forwards
     adain = TRAIN_ADAIN_PER_MEMBER * forwards
     want = {name: 0 for name in got}
@@ -1501,12 +1609,15 @@ def remat_stage_launches(plain: dict) -> dict:
 
 
 def phase_train_accuracy(card_str: str, over=None,
-                         tag: str = "[train-accuracy]"):
+                         tag: str = "[train-accuracy]", parity: bool = True,
+                         modes=("f32", "bf16")):
     """Phase 7: the first two steps of a reduced config (council-2, 64px,
     gen dim 32, n_res 2, dis dim 16 with 2 layers and 2 scales, batch 2) on
     the card against the port on the CPU in f32 (the plain versions), from
     the same weights, batch and z. ``over``: settings added to the config
-    on both sides (phase 12's options), ``tag`` the lines' prefix.
+    on both sides (phase 12's options, the engines phase's), ``tag`` the
+    lines' prefix; ``parity`` False runs f32 outside parity mode (the
+    config's engines), ``modes`` the card's dtypes.
 
     Tolerances on every metric, relative:
       f32 (parity mode) on the card: step 1 1e-4 -- the same math on the
@@ -1523,7 +1634,7 @@ def phase_train_accuracy(card_str: str, over=None,
     x_a, x_b = (rng.uniform(-1, 1, (b, hw, hw, 3)).astype(np.float32)
                 for _ in range(2))
     reduced = {**REDUCED, **(over or {})}
-    cfg32 = Config.from_dict({**reduced, "parity_mode": True})
+    cfg32 = Config.from_dict({**reduced, "parity_mode": parity})
     cpu = CouncilTrainer(cfg32, device="cpu")
     cpu_state = cpu.init_state(seed=1)
     sds = cpu_state.state_dicts()
@@ -1537,6 +1648,8 @@ def phase_train_accuracy(card_str: str, over=None,
             ("bf16", Config.from_dict({**reduced,
                                        "compute_dtype": "bfloat16"}),
              (3e-2, 3e-2), 1e-3)):
+        if name not in modes:
+            continue
         gpu = CouncilTrainer(cfg, device="cuda")
         state = gpu.load_state(sds)
         for step, (zs, want) in enumerate(zip(zs_steps, ref)):
@@ -1555,6 +1668,226 @@ def phase_train_accuracy(card_str: str, over=None,
                     raise AssertionError(
                         f"card {name} step {step + 1}: {k} {got[k]} vs CPU "
                         f"{want[k]}")
+
+
+# the engines phase: the JAX generator's conv-engine settings over the
+# flagship serving model and the headline train step (config keys; the
+# first is the reference route, which parity_mode also takes)
+ENGINE_SERVE = (
+    ("reference", {"fuse_upsample": False, "boundary_engine": "reference"}),
+    ("defaults", {}),
+    ("phase", {"upsample_engine": "phase"}),
+    ("ln_fused", {"upsample_engine": "ln_fused"}),
+    ("resblock_fuse_pad", {"resblock_fuse_pad": True}),
+)
+ENGINE_TRAIN = (
+    ("reference", {"fuse_upsample": False, "boundary_engine": "reference"}),
+    ("defaults", {}),
+    ("phase+resblock_fuse_pad", {"upsample_engine": "phase",
+                                 "resblock_fuse_pad": True}),
+)
+# wall-timed serving calls per setting, and calls (steps) under the profiler
+ENGINE_CALLS, ENGINE_PROFILED = 10, 3
+# the gather and scatter kernels (profile_port.py's class): the reflect-pad
+# gather, and in training its index_put_ backward's sort
+GATHER_KEYS = ("index", "scatter", "gather", "sort", "radix")
+
+
+def engine_conv_per_fwd(over: dict) -> int:
+    """K1 launches per member forward under the engine settings ``over``:
+    the 16 resblock convs (at pad 1 under resblock_fuse_pad), and the two
+    upsample blocks' phase conv under upsample_engine phase or ln_fused."""
+    phase = (over.get("fuse_upsample", True)
+             and over.get("upsample_engine", "dilated") != "dilated")
+    return CONV_PER_FWD + (2 if phase else 0)
+
+
+def engine_train_conv(over: dict) -> int:
+    """K1 sites per member and headline train step under ``over``: the two
+    decodes (the translation's and recon_x's) each add their upsample
+    blocks' phase convs."""
+    return TRAIN_CONV_PER_MEMBER + 2 * (engine_conv_per_fwd(over)
+                                        - CONV_PER_FWD)
+
+
+def kernel_profile(fn, calls: int):
+    """(kernel ms, gather/scatter ms, kernel launches) per call of fn, from
+    the CUDA events of a torch.profiler trace of ``calls`` calls (the trace
+    is taken again, up to twice, if it holds no device event)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = gather = 0.0
+        n = 0
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                us = e.time_range.elapsed_us()
+                total += us
+                n += 1
+                if any(k in e.name for k in GATHER_KEYS):
+                    gather += us
+        if n:
+            return total / 1e3 / calls, gather / 1e3 / calls, n / calls
+    raise AssertionError("the profiler recorded no device event")
+
+
+def _engine_close(got, want, what: str, card_str: str) -> None:
+    """Phase 5's bf16 tolerances in [-1, 1] output units: mean 2e-2, max
+    0.25."""
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"[engines] {what}: {got.shape}, non-finite")
+    d = np.abs(got - want)
+    log(f"[engines] {what}: mean abs {d.mean():.6g} max abs {d.max():.6g} "
+        f"(tol mean 0.02, max 0.25) [{card_str}]")
+    if not (d.mean() <= 2e-2 and d.max() <= 0.25):
+        raise AssertionError(f"[engines] {what} disagrees")
+
+
+def engines_serve(card_str: str) -> dict:
+    """The flagship model's member 0 at bucket 8 under each of
+    ``ENGINE_SERVE``: its bf16 output against the card's reference route
+    at the same bucket and, on 2 images, against the CPU f32 Translator of
+    the same setting; K1 and norm launches per forward; wall ms per
+    ``translate_u8io_device`` call (host clock around synchronized calls,
+    median of ENGINE_CALLS), kernel and gather ms per call under the
+    profiler."""
+    sd = Translator(Config.from_dict(FLAGSHIP), device="cpu").init_members(
+        1, seed=0)[0].state_dict()
+    rng = np.random.default_rng(3)
+    x8 = rng.uniform(-1, 1, (BATCH, HW, HW, 3)).astype(np.float32)
+    z8 = rng.standard_normal((BATCH, 8)).astype(np.float32)
+    xu8 = torch.from_numpy(rng.integers(0, 256, (BATCH, HW, HW, 3),
+                                        dtype=np.uint8)).cuda()
+    zt = torch.from_numpy(z8).cuda()
+    out, ref8 = {}, None
+    for name, over in ENGINE_SERVE:
+        raw = {**FLAGSHIP, **over}
+        tr = Translator(Config.from_dict(raw), device="cuda")
+        gen = tr.load_members([sd])[0]
+        tr.translate(gen, x8, z8)
+        torch.cuda.synchronize()
+        reset_counts()
+        got8 = tr.translate(gen, x8, z8)[0]
+        torch.cuda.synchronize()
+        launches = _snapshot()
+        got8 = got8.float().cpu().numpy()
+        want = (engine_conv_per_fwd(over), NORM_PER_FWD, ADAIN_PER_FWD)
+        if counts() != want:
+            raise AssertionError(f"[engines] {name}: launches conv/norm/"
+                                 f"adain {counts()} != {want} per forward")
+        if ref8 is None:
+            ref8 = got8
+        else:
+            _engine_close(got8, ref8, f"serve {name} vs the card's reference "
+                          f"route, bf16 at bucket {BATCH}", card_str)
+        cpu = Translator(Config.from_dict({**raw, "compute_dtype":
+                                           "float32"}), device="cpu")
+        want2 = cpu.translate(cpu.load_members([sd])[0], x8[:2],
+                              z8[:2])[0].numpy()
+        got2 = tr.translate(gen, x8[:2], z8[:2])[0].float().cpu().numpy()
+        _engine_close(got2, want2, f"serve {name}: card bf16 vs CPU f32 at "
+                      f"batch 2", card_str)
+
+        def call():
+            return tr.translate_u8io_device(gen, xu8, z=zt)
+
+        for _ in range(3):
+            call()
+        walls = []
+        for _ in range(ENGINE_CALLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        kernel_ms, gather_ms, n = kernel_profile(call, ENGINE_PROFILED)
+        out[name] = {"wall_ms": float(np.median(walls)),
+                     "kernel_ms": kernel_ms, "gather_ms": gather_ms,
+                     "kernel_launches": n, "launches": launches}
+        log(f"[engines] serve {name} {json.dumps(over)}: bucket {BATCH} wall "
+            f"{out[name]['wall_ms']:.6g} ms/call, kernels {kernel_ms:.6g} "
+            f"ms ({n:.6g} kernel launches) of which gather {gather_ms:.6g} "
+            f"ms; per forward K1 {launches['conv3x3_valid.launches']}, norm "
+            f"{launches['instance_norm.launches']} (AdaIN "
+            f"{launches['instance_norm.affine_launches']}) [{card_str}]")
+        del tr, gen
+    return out
+
+
+def engines_train(card_str: str) -> dict:
+    """The headline train step under each of ``ENGINE_TRAIN``: 2 warm and
+    10 timed steps (ms per step, host clock), every metric finite, the
+    launch invariants (K1's sites per :func:`engine_train_conv`), peak
+    memory, and kernel and gather ms of one step under the profiler."""
+    rng = np.random.default_rng(0)
+    x_a, x_b = (torch.from_numpy(rng.uniform(-1, 1, (BATCH, HW, HW, 3))
+                                 .astype(np.float32)).cuda()
+                for _ in range(2))
+    out = {}
+    for name, over in ENGINE_TRAIN:
+        trainer = CouncilTrainer(Config.from_dict({**HEADLINE, **over}),
+                                 device="cuda")
+        holder = {"state": trainer.init_state(seed=0)}
+
+        def step():
+            holder["state"], m = trainer.train_step(holder["state"], x_a,
+                                                    x_b)
+            return m
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(WARM_STEPS):
+            step()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        series = [step() for _ in range(TIMED_STEPS)]
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / TIMED_STEPS
+        launches = _snapshot()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if not all(_finite(m) for m in series):
+            raise AssertionError(f"[engines] train {name}: non-finite "
+                                 f"metrics")
+        check_train_launches(launches, TIMED_STEPS, f"[engines] {name}",
+                             engine_train_conv(over))
+        kernel_ms, gather_ms, n = kernel_profile(step, 1)
+        out[name] = {"ms_per_step": ms, "kernel_ms": kernel_ms,
+                     "gather_ms": gather_ms, "kernel_launches": n,
+                     "peak_gib": peak, "launches": launches}
+        log(f"[engines] train {name} {json.dumps(over)}: {ms:.6g} ms/step "
+            f"over {TIMED_STEPS} steps after {WARM_STEPS}; kernels "
+            f"{kernel_ms:.6g} ms ({n:.6g} kernel launches) of which gather "
+            f"and scatter {gather_ms:.6g} ms per step; peak {peak:.6g} GiB; "
+            f"launches over the timed steps {json.dumps(launches)} "
+            f"[{card_str}]")
+        del trainer, holder
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_engines(card_str: str) -> dict:
+    """The engines phase (``[engines]``): the JAX generator's conv engines
+    at full width, served (:func:`engines_serve`) and trained
+    (:func:`engines_train`), then phase 7's reduced config in f32 outside
+    parity mode under the last training setting's engines (phase
+    upsample, phase_fused 7x7, the resblocks' strips on K1 at pad 1) on
+    the card against the CPU, at phase 7's f32 tolerances (TF32 off, as
+    :func:`main` sets it, also when the phase runs alone)."""
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"serve": engines_serve(card_str),
+           "train": engines_train(card_str)}
+    phase_train_accuracy(card_str, dict(ENGINE_TRAIN[-1][1]), "[engines]",
+                         parity=False, modes=("f32",))
+    log(f"[engines] phase {time.perf_counter() - t0:.6g} s [{card_str}]")
+    return out
 
 
 def write_folders(root: str) -> None:
@@ -2546,6 +2879,7 @@ def main():
         quant_launches = phase_quant(card_str, tmp, ckpt, none_tp)
     launches, step_ips = phase_train(card_str)
     phase_train_accuracy(card_str)
+    engines = phase_engines(card_str)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
         cli_launches = phase_train_cli(card_str, tmp, step_ips)
         phase_complete(card_str, tmp)
@@ -2594,6 +2928,45 @@ def main():
          quant_launches["quantize_act.per_image_launches"],
          kres[("quant_act_dynamic", "resblock")]),
     ]
+    # K1/K1'/K2 at the engines' shapes; launches: the kernel's count in
+    # the engines phase's run where the shape runs (a serving forward under
+    # upsample_engine phase: 16 resblock convs and the 2 phase convs; the
+    # timed steps under phase + resblock_fuse_pad, every resblock conv at
+    # pad 1)
+    conv_src = "councilx_torch/csrc/conv3x3.cu"
+    wgrad_src = "councilx_torch/csrc/conv3x3_wgrad.cu"
+    served = engines["serve"]["phase"]["launches"]
+    trained = engines["train"]["phase+resblock_fuse_pad"]["launches"]
+    for site, (b, h, w, c, o) in PHASE_CONV_SITES.items():
+        tag = f"{site} phase conv"
+        xp = (b, h + 2, w + 2, c)
+        entries += [
+            (f"conv3x3@{site}_phase", "cuda", conv_src,
+             "councilx/ops/pallas_conv.py:82",
+             served["conv3x3_valid.launches"],
+             kres[("conv3x3", "bf16", f"{tag} xp {xp} -> {o}")]),
+            (f"conv3x3_dgrad@{site}_phase", "cuda", conv_src,
+             "councilx/ops/pallas_conv.py:279",
+             trained["conv3x3_dgrad.launches"],
+             kres[("conv3x3_dgrad", "bf16", f"{tag} g {(b, h, w, o)}")]),
+            (f"conv3x3_wgrad@{site}_phase", "cuda", wgrad_src,
+             "councilx/ops/pallas_conv.py:178",
+             trained["conv3x3_wgrad.launches"],
+             kres[("conv3x3_wgrad", "bf16", f"{tag} xp {xp}")])]
+    x1 = PAD1_SITE[:4]
+    entries += [
+        ("conv3x3_same_zero", "cuda", conv_src,
+         "councilx/ops/pallas_conv.py:82", trained["conv3x3_valid.launches"],
+         kres[("conv3x3_same_zero", "bf16", f"pad 1 x {x1}")]),
+        ("conv3x3_dgrad_pad1", "cuda", conv_src,
+         "councilx/ops/pallas_conv.py:279",
+         trained["conv3x3_dgrad.launches"],
+         kres[("conv3x3_dgrad_pad1", "bf16",
+               f"pad 1 g {PAD1_SITE[:3] + PAD1_SITE[4:]}")]),
+        ("conv3x3_wgrad_pad1", "cuda", wgrad_src,
+         "councilx/ops/pallas_conv.py:178",
+         trained["conv3x3_wgrad.launches"],
+         kres[("conv3x3_wgrad_pad1", "bf16", f"pad 1 x {x1}")])]
     for e in entries:
         if e[4] < 1:
             raise AssertionError(f"{e[0]} was not launched on the path")

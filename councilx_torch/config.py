@@ -6,13 +6,17 @@ both packages. Flat (``council_size: 4``) and nested
 (``council: {council_size: 4}``) spellings are accepted; unknown keys are
 kept in ``Config.extras`` so a config round-trips.
 
-Some fields select engines of the JAX package and have no effect in the
-port, which has one engine: the kernels at the 3x3 resblock convs and the
-IN/AdaIN sites on CUDA tensors, and the plain reference ops everywhere
-else. They are parsed and validated so that a config loads unchanged:
-``use_pallas``, ``use_pallas_norm``, ``boundary_engine``,
-``upsample_engine`` and ``resblock_fuse_pad``; ``fuse_upsample`` acts only
-under ``quant_scope: heavy``, where it picks the quantized upsample route.
+The generator's conv-engine keys act as in the JAX package
+(``nn/generator.py``, ``nn/blocks.py``): ``fuse_upsample`` and
+``upsample_engine`` (the fused upsample + 5x5 conv: dilated, phase or
+ln_fused), ``boundary_engine`` (the pad-free 7x7 convs: auto, phase_fused,
+phase, strips or reference) and ``resblock_fuse_pad``; ``parity_mode``
+takes the reference route. Two keys select engines of the JAX package and
+have no effect in the port: ``use_pallas`` and ``use_pallas_norm``. The
+port's 3x3 stride-1 convs (the resblocks', and the phase conv of the
+upsample engines) always run the conv kernel K1 on CUDA tensors, and its
+IN/AdaIN sites the norm kernels; they are parsed and validated so that a
+config loads unchanged.
 
 Reference parity: utils.py::get_config, configs/*.yaml (key schema).
 """

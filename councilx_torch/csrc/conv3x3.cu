@@ -9,12 +9,17 @@
 //   forward (dgrad 0): x = the reflect-padded input xp (B, H+2, W+2, C),
 //     pad 0, Cx = C, N = O:
 //       y[b,i,j,n] = sum_{t,c} x[b, i+dy, j+dx, c] * wf[t, n, c];
+//     or x = the unpadded input (B, H, W, C) at pad 1: the zero-padded
+//     "same" conv, the interior of ops/pad_conv.py's strips engine
+//     (councilx/ops/pad_conv.py:187, an XLA conv there);
 //   dgrad (dgrad 1): x = the cotangent g (B, H, W, O), pad 2, Cx = O,
 //     N = C, and wf read with flipped taps and transposed, which is the
 //     flipped, in/out-swapped weight of _bwd_rule:
 //       y[b,i,j,n] = sum_{t,o} x[b, i+dy-2, j+dx-2, o] * wf[8-t, o, n],
 //     d(xp) (B, H+2, W+2, C). Neither the zero pad of _bwd_rule
 //     (pallas_conv.py:277-279) nor the flipped weight is ever materialised.
+//     The dgrad of the pad-1 forward is the same call at pad 1: d(x)
+//     (B, H, W, C).
 // Sums in f32, one cast to the input type at the end. The caller does the
 // reflect pad and the bias, as ops/conv3x3.py does.
 //
@@ -75,7 +80,7 @@
 //
 // Gate (checked by the Python wrapper, which raises on anything else):
 // C % 8 == 0 and O % 8 == 0 (TMA strides are multiples of 16 bytes),
-// pad in {0, 2}; ragged C, O and M are zero-filled and clipped here.
+// pad in {0, 1, 2}; ragged C, O and M are zero-filled and clipped here.
 
 #include "hopper.cuh"
 

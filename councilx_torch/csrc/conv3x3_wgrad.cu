@@ -5,7 +5,10 @@
 //   dk[dy,dx,c,o] = sum_{b,i,j} xp[b,i+dy,j+dx,c] * g[b,i,j,o]
 // with xp (B, H+2, W+2, C) NHWC contiguous, g (B, H, W, O) contiguous and
 // dk (3, 3, C, O) HWIO. Sums in f32; the result is written in the output
-// type (the conv weight's) with one rounding at the end.
+// type (the conv weight's) with one rounding at the end. With pad 1 the
+// input is the unpadded x (B, H, W, C) of the zero-padded "same" conv
+// (conv3x3.cu at pad 1), and xp is x zero-padded by 1, never materialised:
+// the loads zero-fill the border.
 //
 // What bounds it on the H100: it is a GEMM dk_cat (9C, O) = A^T G over
 // K' = B*H*W pixels, with A the im2col matrix (K', 9C) and G = g viewed as
@@ -21,8 +24,9 @@
 //     output: 9 * ceil(C/128) * ceil(O/256) tiles, 18 at C = O = 256.
 //   * A, TMA im2col mode, the forward's A box: one load brings 64 pixels
 //     (one K' step) x 64 channels of tap (dy, dx) of xp, the tap entering
-//     as the im2col offset, pad 0; pixels past the last image and channels
-//     past C zero-fill. Two loads per step, one per consumer warpgroup's 64
+//     as the im2col offset, at pad 0 or 1 (the window corners start at
+//     -pad, as conv3x3.cu's); pixels past the last image, the pad's border
+//     and channels past C zero-fill. Two loads per step, one per consumer warpgroup's 64
 //     channels. The channels are wgmma's M and the contiguous dimension, so
 //     A is MN-major and wgmma takes it with its transpose bit.
 //   * B, TMA tiled mode, g as 2-D (O, B*H*W): four 64 x 64 boxes per step,
@@ -58,7 +62,8 @@
 //
 // Gate (checked by the Python wrapper, which raises on anything else):
 // C % 8 == 0, O % 8 == 0 (TMA strides are multiples of 16 bytes), H, W >=
-// 1, B*H*W < 2^31, the pixels per split a multiple of the kernel's K' step.
+// 1, B*H*W < 2^31, the pixels per split a multiple of the kernel's K' step,
+// pad in {0, 1}.
 
 #include "hopper.cuh"
 
@@ -85,7 +90,8 @@ static_assert(BM == CONSUMERS * 64, "one 64-channel A box per warpgroup");
 static_assert(CONSUMERS * EPI_BYTES <= STAGES * STAGE_BYTES,
               "the epilogue tiles reuse the ring");
 
-// xmap: im2col map of xp (C, W+2, H+2, B), pad 0, 64-pixel boxes; gmap:
+// xmap: im2col map of the input (C, W+2-2pad, H+2-2pad, B) at `pad`,
+// 64-pixel boxes; gmap:
 // tiled map of g as (O, P); kmap: tiled map of dk as (O, C, 9), for a bf16
 // dk (dk32 null), else unused. Grid (9 * cblocks, ceil(O / BN), S): block
 // (t, n, s) computes rows [128 (t % cblocks), +128) of tap t / cblocks and
@@ -97,7 +103,7 @@ wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                    const __grid_constant__ CUtensorMap kmap,
                    float* __restrict__ part, int* __restrict__ counters,
                    float* __restrict__ dk32, int H, int W, int C, int O,
-                   int P, int pix_per_split, int cblocks) {
+                   int P, int pix_per_split, int cblocks, int pad) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full_bar[STAGES];
   __shared__ __align__(8) uint64_t empty_bar[STAGES];
@@ -143,7 +149,7 @@ wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
         const int j = rem - i * W;
         for (int wg = 0; wg < CONSUMERS; ++wg)
           tma_load_im2col(st + wg * BOX_BYTES, &xmap, &full_bar[s],
-                          c0 + wg * 64, j, i, b,
+                          c0 + wg * 64, j - pad, i - pad, b,
                           static_cast<uint16_t>(tap % 3),
                           static_cast<uint16_t>(tap / 3));
         for (int nb = 0; nb < BN / 64; ++nb)
@@ -256,14 +262,20 @@ wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
-// index of the top-left tap of output pixel p in the padded input, in pixels
-__device__ __forceinline__ long long tap0_pixel(long long p, int H, int W) {
+// x[b, i+dy-pad, j+dx-pad, c] for output pixel p = (b, i, j) and tap t,
+// zero outside x (B, H+2-2pad, W+2-2pad, C)
+__device__ __forceinline__ float tap_value(const float* __restrict__ x,
+                                           long long p, int t, int c, int H,
+                                           int W, int C, int pad) {
   const long long hw = static_cast<long long>(H) * W;
   const long long b = p / hw;
   const long long rem = p - b * hw;
-  const long long i = rem / W;
-  const long long j = rem - i * W;
-  return (b * (H + 2) + i) * (W + 2) + j;
+  const int ih = static_cast<int>(rem / W) + t / 3 - pad;
+  const int iw = static_cast<int>(rem % W) + t % 3 - pad;
+  const int Hx = H + 2 - 2 * pad;
+  const int Wx = W + 2 - 2 * pad;
+  if (ih < 0 || ih >= Hx || iw < 0 || iw >= Wx) return 0.0f;
+  return x[((b * Hx + ih) * Wx + iw) * C + c];
 }
 
 constexpr int FBM = 64;
@@ -274,7 +286,7 @@ constexpr int FTHREADS = 256;
 __global__ void __launch_bounds__(FTHREADS)
 wgrad_f32_kernel(const float* __restrict__ xp, const float* __restrict__ g,
                  float* __restrict__ part, int B, int H, int W, int C, int O,
-                 long long pix_per_split) {
+                 int pad, long long pix_per_split) {
   __shared__ float As[FBK][FBM + 4];
   __shared__ float Gs[FBK][FBN + 4];
   const int tid = threadIdx.x;
@@ -287,7 +299,6 @@ wgrad_f32_kernel(const float* __restrict__ xp, const float* __restrict__ g,
   const long long p_begin = static_cast<long long>(blockIdx.z) * pix_per_split;
   const long long p_end =
       P < p_begin + pix_per_split ? P : p_begin + pix_per_split;
-  const int Wp = W + 2;
 
   float acc[4][4];
 #pragma unroll
@@ -307,7 +318,7 @@ wgrad_f32_kernel(const float* __restrict__ xp, const float* __restrict__ g,
       if (p < p_end && m < M) {
         const int t = m / C;
         const int c = m - t * C;
-        v = xp[(tap0_pixel(p, H, W) + (t / 3) * Wp + t % 3) * C + c];
+        v = tap_value(xp, p, t, c, H, W, C, pad);
       }
       As[row][col] = v;
     }
@@ -388,11 +399,12 @@ int prepare_thread() {
 // The bf16 kernel: encode its maps and launch it; 0 or a CUDA error code.
 int launch_bf16(const void* xp, const void* g, float* part, int* counters,
                 void* dk, int out_bf16, int B, int H, int W, int C, int O,
-                int splits, int pix_per_split, cudaStream_t stream) {
+                int pad, int splits, int pix_per_split, cudaStream_t stream) {
   int err = prepare_thread();
   if (err != 0) return err;
   CUtensorMap xmap, gmap, kmap{};
-  err = encode_im2col_bf16(&xmap, xp, B, H + 2, W + 2, C, 0, BK);
+  err = encode_im2col_bf16(&xmap, xp, B, H + 2 - 2 * pad, W + 2 - 2 * pad, C,
+                           pad, BK);
   if (err != 0) return err;
   const long long P = static_cast<long long>(B) * H * W;
   const cuuint64_t o2 = static_cast<cuuint64_t>(O) * 2;
@@ -417,14 +429,15 @@ int launch_bf16(const void* xp, const void* g, float* part, int* counters,
   wgrad_wgmma_kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
       xmap, gmap, kmap, part, counters,
       out_bf16 ? nullptr : static_cast<float*>(dk), H, W, C, O,
-      static_cast<int>(P), pix_per_split, cblocks);
+      static_cast<int>(P), pix_per_split, cblocks, pad);
   return 0;
 }
 
 }  // namespace
 
-// in_dtype (xp and g): 0 = float32, 1 = bfloat16; out_dtype (dk): the same
-// codes. Split s covers output pixels [s * pix_per_split, (s + 1) *
+// xp (B, H+2-2pad, W+2-2pad, C), read zero-padded by pad (0 or 1), g (B,
+// H, W, O). in_dtype (xp and g): 0 = float32, 1 = bfloat16; out_dtype (dk):
+// the same codes. Split s covers output pixels [s * pix_per_split, (s + 1) *
 // pix_per_split). bf16: part holds splits * tiles * 128 * 256 floats (none
 // needed for one split) and counters one zeroed int32 per tile (9 *
 // ceil(C/128) * ceil(O/256)), which the kernel leaves zeroed; one launch.
@@ -434,15 +447,16 @@ int launch_bf16(const void* xp, const void* g, float* part, int* counters,
 extern "C" int councilx_conv3x3_wgrad(const void* xp, const void* g,
                                       void* part, void* counters, void* dk,
                                       int B, int H, int W, int C, int O,
-                                      int in_dtype, int out_dtype, int splits,
-                                      long long pix_per_split, void* stream) {
+                                      int pad, int in_dtype, int out_dtype,
+                                      int splits, long long pix_per_split,
+                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (out_dtype != 0 && out_dtype != 1)
+  if ((out_dtype != 0 && out_dtype != 1) || pad < 0 || pad > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (in_dtype == 1) {
     const int err = launch_bf16(xp, g, static_cast<float*>(part),
                                 static_cast<int*>(counters), dk, out_dtype,
-                                B, H, W, C, O, splits,
+                                B, H, W, C, O, pad, splits,
                                 static_cast<int>(pix_per_split), s);
     if (err != 0) return err;
     return static_cast<int>(cudaGetLastError());
@@ -452,7 +466,7 @@ extern "C" int councilx_conv3x3_wgrad(const void* xp, const void* g,
   dim3 grid((O + FBN - 1) / FBN, (M + FBM - 1) / FBM, splits);
   wgrad_f32_kernel<<<grid, FTHREADS, 0, s>>>(
       static_cast<const float*>(xp), static_cast<const float*>(g),
-      static_cast<float*>(part), B, H, W, C, O, pix_per_split);
+      static_cast<float*>(part), B, H, W, C, O, pad, pix_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long n = static_cast<long long>(M) * O;

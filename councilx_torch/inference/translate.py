@@ -42,7 +42,8 @@ from councilx_torch.ckpt.torch_convert import (quant_stat_names,
                                               quant_stats_to_port)
 from councilx_torch.config import Config
 from councilx_torch.nn.blocks import init_parameters
-from councilx_torch.nn.generator import AdaINGen, composite_with_mask
+from councilx_torch.nn.generator import (AdaINGen, composite_with_mask,
+                                         engine_kwargs)
 
 Members = Union[AdaINGen, Sequence[AdaINGen]]
 
@@ -126,8 +127,7 @@ class Translator:
             mask_activation=self.mask_activation,
             quant=self.quant if quant is None else quant,
             quant_scope=cfg.quant_scope,
-            fuse_upsample=cfg.fuse_upsample and not cfg.parity_mode,
-            device=self.device)
+            **engine_kwargs(cfg), device=self.device)
         return gen.eval().requires_grad_(False)
 
     def _take(self, gen: AdaINGen) -> AdaINGen:

@@ -10,14 +10,20 @@ reference ``.pt`` files and converted JAX checkpoints load with
 the activation's dtype at use, as the JAX modules do.
 
 The two kernel sites: the 3x3 stride-1 conv of the resblocks goes through
-:func:`councilx_torch.ops.conv3x3.conv3x3_valid`, and every IN/AdaIN
-through :func:`councilx_torch.ops.instance_norm.instance_norm`. Both are
-autograd Functions: on CUDA tensors they launch the Hopper kernels forward
-and backward; on CPU tensors their plain versions run. A block with
-``quant`` (W8A8 serving, ``ops/quant.py``) runs its conv on the int8
-kernels instead, ahead of the 3x3 site, as in the JAX package. Every other
-op is the plain reference op, the spectral-norm conv and batch norm
-included (the JAX package runs them as XLA ops).
+:func:`councilx_torch.ops.conv3x3.conv3x3_valid` (or, with ``fuse_pad``,
+:func:`~councilx_torch.ops.conv3x3.conv3x3_same_zero`, the same kernel at a
+zero pad of 1, inside the strips engine), and every IN/AdaIN through
+:func:`councilx_torch.ops.instance_norm.instance_norm`. Both are autograd
+Functions: on CUDA tensors they launch the Hopper kernels forward and
+backward; on CPU tensors their plain versions run. A block with ``quant``
+(W8A8 serving, ``ops/quant.py``) runs its conv on the int8 kernels
+instead, ahead of the 3x3 site, as in the JAX package. The JAX block's
+conv engines are the port's too: the fused upsample + 5x5 conv
+(``ops/upsample_conv.py``: dilated, phase -- its 3x3 conv on K1 -- and
+``ln_fused``) and the pad-free "same" convs (``ops/pad_conv.py``:
+phase_fused, phase, strips). Every other op is the plain reference op, the
+spectral-norm conv and batch norm included (the JAX package runs them as
+XLA ops).
 
 State of the ``sn`` and ``bn`` norms, in MUNIT's names: a spectral-norm
 block's conv is MUNIT's ``SpectralNorm(nn.Conv2d)``, so its keys are
@@ -273,10 +279,12 @@ class GlobalAvgPool(nn.Module):
         return x.mean(dim=(1, 2), keepdim=True)
 
 
-def _conv_nhwc(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-               stride: int) -> torch.Tensor:
-    """Plain conv of already padded NHWC x with an OIHW weight."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, stride)
+def _conv_nhwc(x: torch.Tensor, weight: torch.Tensor,
+               bias: Optional[torch.Tensor], stride: int,
+               padding: int = 0) -> torch.Tensor:
+    """Plain conv of NHWC x (already padded, or zero-padded by
+    ``padding``) with an OIHW weight."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, stride, padding)
     return y.permute(0, 2, 3, 1).contiguous()
 
 
@@ -506,26 +514,53 @@ class Conv2dBlock(nn.Module):
     ``act_absmax`` buffer; "w8a8_static" takes ``act_absmax / 127`` (set by
     :meth:`set_quant_stat`). The buffers are not in the state dict.
 
-    ``phase_upsample`` (a quantized 5x5 pad-2 block of the decoder): the
-    block takes the input of the nearest-2x upsample and runs
-    ``ops.upsample_conv.upsample2x_conv5x5_w8a8``, as the JAX block does
-    under ``fuse_upsample``."""
+    The JAX block's engines, by its attributes and in its branch order
+    (fused upsample, sn, quant, fuse_pad, plain):
+
+    * ``upsample2x``: the block takes the input of the nearest-2x upsample.
+      With ``fuse_upsample`` a 5x5 stride-1 pad-2 block (not sn) runs the
+      fused op (``ops/upsample_conv.py``): ``upsample_engine`` "dilated"
+      or "phase", or "ln_fused" (norm 'ln', not quantized, not prelu: the
+      LN and activation folded in; otherwise "dilated"); quantized, its
+      W8A8 phase engine. Else the block upsamples, then convolves.
+    * ``fuse_pad`` (a stride-1 odd KxK pad K//2 block, not sn or quant):
+      ``ops/pad_conv.py``. Channel-starved (C_in or C_out <= 16) with even
+      H, W, norm 'in' or 'none' and not prelu, ``boundary_engine`` "auto"
+      or "phase_fused" runs ``conv2d_same_phase_fused`` (norm and
+      activation folded in); otherwise ``conv2d_same`` with
+      ``boundary_engine`` ("phase_fused" as "auto").
+
+    Their derived weights (the 6x6 dilated kernel, the phase kernels, the
+    phase-packed kernel) are made in the autograd graph when the weight
+    takes a gradient; otherwise once per weight version, dtype and device,
+    as the int8 weight is."""
 
     def __init__(self, in_dim: int, out_dim: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, norm: str = "none",
                  activation: str = "relu", pad_type: str = "zero",
                  in_precision: str = "f32", in_stats: str = "two_pass",
-                 quant: str = "none", phase_upsample: bool = False,
-                 device=None):
+                 quant: str = "none", upsample2x: bool = False,
+                 fuse_upsample: bool = True,
+                 upsample_engine: str = "dilated", fuse_pad: bool = False,
+                 boundary_engine: str = "auto", device=None):
         super().__init__()
         if quant not in QUANT_MODES:
             raise ValueError(f"unknown quant: {quant}")
-        if phase_upsample and (quant == "none" or (kernel_size, stride,
-                                                   padding) != (5, 1, 2)):
-            raise ValueError("phase_upsample needs a quantized 5x5 stride-1 "
-                             "pad-2 block")
         self.quant = quant
-        self.phase_upsample = phase_upsample
+        self.upsample2x = upsample2x
+        self.fused_upsample = (upsample2x and fuse_upsample and norm != "sn"
+                               and (kernel_size, stride, padding)
+                               == (5, 1, 2))
+        self.upsample_engine = upsample_engine
+        self.ln_fusable = (upsample_engine == "ln_fused" and norm == "ln"
+                           and quant == "none" and activation != "prelu")
+        self.fuse_pad = (fuse_pad and stride == 1 and kernel_size % 2 == 1
+                         and padding == kernel_size // 2)
+        self.boundary_engine = boundary_engine
+        self.out_dim = out_dim
+        self.kernel_size = kernel_size
+        self.activation_name = activation
+        self._derived = {}
         if quant != "none":
             self.register_buffer("act_absmax",
                                  torch.zeros((), device=device),
@@ -562,6 +597,38 @@ class Conv2dBlock(nn.Module):
         self.kernel_site = (kernel_size == 3 and stride == 1
                             and padding == 1 and norm != "sn")
 
+    def derived_weight(self, kind: str, dtype: torch.dtype) -> torch.Tensor:
+        """The conv weight as an engine takes it, in ``dtype``: "dilated"
+        (``upsample_conv.dilated_weight``), "phase" (the phase kernels, laid
+        out for K1) or "packed" (the phase-packed HWIO kernel). In the
+        autograd graph when the weight takes a gradient here; otherwise made
+        again only when the weight's value (its version), place or
+        ``dtype`` changed."""
+        from councilx_torch.ops import pad_conv, upsample_conv
+
+        def make():
+            kernel = self.conv.weight.permute(2, 3, 1, 0).to(dtype)
+            if kind == "dilated":
+                return upsample_conv.dilated_weight(kernel, dtype)
+            if kind == "phase":
+                # K1's weight layout: transpose(2, 3) contiguous, no copy
+                return upsample_conv.phase_kernels(kernel, dtype).transpose(
+                    2, 3).contiguous().transpose(2, 3)
+            return pad_conv._phase_packed_kernel(kernel).permute(
+                3, 2, 0, 1).contiguous().permute(2, 3, 1, 0)
+
+        w = self.conv.weight
+        if torch.is_grad_enabled() and w.requires_grad:
+            return make()
+        key = (dtype, w.device, w.data_ptr(), w._version)
+        hit = self._derived.get(kind)
+        if hit is None or hit[0] != key:
+            # a plain tensor, also when made in inference mode
+            with torch.inference_mode(False), torch.no_grad():
+                hit = (key, make())
+            self._derived[kind] = hit
+        return hit[1]
+
     def set_quant_stat(self, absmax: torch.Tensor) -> None:
         """The calibrated max |x| of the block input (0-d), and with it the
         static scale ``absmax / 127`` of ``quant: w8a8_static``."""
@@ -574,13 +641,13 @@ class Conv2dBlock(nn.Module):
     def quant_weight(self, dtype: torch.dtype) -> QuantWeight:
         """The int8 weight of the quantized conv for compute ``dtype``, made
         again only when the weight's value (its version), place or
-        ``dtype`` changed: the f32 parameters quantized, or under
-        ``phase_upsample`` the phase kernels rounded to ``dtype``."""
+        ``dtype`` changed: the f32 parameters quantized, or for the fused
+        upsample the phase kernels rounded to ``dtype``."""
         w = self.conv.weight
         key = (dtype, w.device, w.data_ptr(), w._version)
         if key != self._qweight_key:
             kernel = w.detach().permute(2, 3, 1, 0)      # OIHW -> HWIO
-            if self.phase_upsample:
+            if self.fused_upsample:
                 from councilx_torch.ops.upsample_conv import phase_kernels
                 kernel = phase_kernels(kernel, dtype)
             self._qweight = quantize_weights(kernel)
@@ -603,7 +670,7 @@ class Conv2dBlock(nn.Module):
 
     def _conv_w8a8(self, x: torch.Tensor) -> torch.Tensor:
         a_scale = self._quant_a_scale(x)
-        if self.phase_upsample:
+        if self.fused_upsample:
             from councilx_torch.ops.upsample_conv import \
                 upsample2x_conv5x5_w8a8
             return upsample2x_conv5x5_w8a8(
@@ -614,15 +681,69 @@ class Conv2dBlock(nn.Module):
         return conv_int8(q, self.quant_weight(x.dtype), a_s, self.conv.bias,
                          self.stride, x.dtype)
 
+    def _upsample_conv(self, x: torch.Tensor) -> torch.Tensor:
+        """The fused upsample + 5x5 conv, unquantized (``ln_fused`` apart)."""
+        from councilx_torch.ops.upsample_conv import upsample2x_conv5x5
+        engine = ("dilated" if self.upsample_engine == "ln_fused"
+                  else self.upsample_engine)
+        return upsample2x_conv5x5(
+            x, self.conv.weight.permute(2, 3, 1, 0).to(x.dtype),
+            self.conv.bias, self.pad_type, engine,
+            self.derived_weight(engine, x.dtype))
+
+    def _starved_fusable(self, x: torch.Tensor) -> bool:
+        """The JAX block's rule for the phase_fused boundary conv."""
+        starved = x.shape[-1] <= 16 or self.out_dim <= 16
+        return (starved and self.kernel_size > 1 and x.shape[1] % 2 == 0
+                and x.shape[2] % 2 == 0 and self.norm_type in ("in", "none")
+                and self.activation_name != "prelu")
+
+    def _conv_same(self, x: torch.Tensor) -> torch.Tensor:
+        """The fuse_pad conv by ``boundary_engine`` (phase_fused handled by
+        the caller)."""
+        from councilx_torch.ops.pad_conv import conv2d_same, same_route
+        eng = ("auto" if self.boundary_engine == "phase_fused"
+               else self.boundary_engine)
+        kernel = (hwio_weight(self.conv.weight, x.dtype)
+                  if self.kernel_size == 3
+                  else self.conv.weight.permute(2, 3, 1, 0).to(x.dtype))
+        route = same_route(x.shape[1], x.shape[2], x.shape[3], self.out_dim,
+                           self.kernel_size, self.pad_type, eng)
+        packed = (self.derived_weight("packed", x.dtype)
+                  if route == "phase" else None)
+        return conv2d_same(x, kernel, self.conv.bias, self.pad_type, eng,
+                           packed)
+
     def forward(self, x: torch.Tensor,
                 adain_params: Optional[AdaINPair] = None) -> torch.Tensor:
-        if self.quant != "none":
+        if self.upsample2x and not self.fused_upsample:
+            x = upsample_nearest_2x(x)
+        if self.fused_upsample and self.quant == "none":
+            if self.ln_fusable:
+                from councilx_torch.ops.upsample_conv import \
+                    upsample2x_conv5x5_ln_fused
+                return upsample2x_conv5x5_ln_fused(
+                    x, self.conv.weight.permute(2, 3, 1, 0).to(x.dtype),
+                    self.conv.bias, self.pad_type, self.norm,
+                    self.activation, self.derived_weight("phase", x.dtype))
+            y = self._upsample_conv(x)
+        elif self.norm_type == "sn":
+            y = self.conv(pad2d(x, self.padding, self.pad_type))
+        elif self.quant != "none":
             y = self._conv_w8a8(x)
+        elif self.fuse_pad:
+            if (self._starved_fusable(x)
+                    and self.boundary_engine in ("auto", "phase_fused")):
+                from councilx_torch.ops.pad_conv import \
+                    conv2d_same_phase_fused
+                return conv2d_same_phase_fused(
+                    x, self.conv.weight.permute(2, 3, 1, 0).to(x.dtype),
+                    self.conv.bias, self.pad_type, self.norm_type,
+                    self.activation, self.derived_weight("packed", x.dtype))
+            y = self._conv_same(x)
         else:
             x = pad2d(x, self.padding, self.pad_type)
-            if self.norm_type == "sn":
-                y = self.conv(x)
-            elif self.kernel_site:
+            if self.kernel_site:
                 y = conv3x3_valid(x, hwio_weight(self.conv.weight, x.dtype)
                                   ) + self.conv.bias.to(x.dtype)
             else:
@@ -677,16 +798,22 @@ class LinearBlock(nn.Module):
 class ResBlock(nn.Module):
     """Two 3x3 Conv2dBlocks with an additive skip (networks.py::ResBlock).
     With norm='adain' the call takes two (gamma, beta) pairs, one per conv,
-    in definition order."""
+    in definition order. ``fuse_pad``: both convs fold their pad in
+    (``ops/pad_conv.py``, the strips engine at the resblock's width: K1 at
+    a zero pad of 1 and the border strips), as the JAX block does under
+    ``resblock_fuse_pad``."""
 
     def __init__(self, dim: int, norm: str = "in", activation: str = "relu",
-                 pad_type: str = "zero", quant: str = "none", device=None):
+                 pad_type: str = "zero", quant: str = "none",
+                 fuse_pad: bool = False, device=None):
         super().__init__()
         self.model = nn.ModuleList([
             Conv2dBlock(dim, dim, 3, 1, 1, norm=norm, activation=activation,
-                        pad_type=pad_type, quant=quant, device=device),
+                        pad_type=pad_type, quant=quant, fuse_pad=fuse_pad,
+                        device=device),
             Conv2dBlock(dim, dim, 3, 1, 1, norm=norm, activation="none",
-                        pad_type=pad_type, quant=quant, device=device)])
+                        pad_type=pad_type, quant=quant, fuse_pad=fuse_pad,
+                        device=device)])
 
     def forward(self, x: torch.Tensor,
                 adain_params: Optional[Sequence[AdaINPair]] = None
@@ -701,11 +828,12 @@ class ResBlocks(nn.Module):
 
     def __init__(self, num_blocks: int, dim: int, norm: str = "in",
                  activation: str = "relu", pad_type: str = "zero",
-                 quant: str = "none", device=None):
+                 quant: str = "none", fuse_pad: bool = False, device=None):
         super().__init__()
         self.model = nn.ModuleList([
             ResBlock(dim, norm=norm, activation=activation,
-                     pad_type=pad_type, quant=quant, device=device)
+                     pad_type=pad_type, quant=quant, fuse_pad=fuse_pad,
+                     device=device)
             for _ in range(num_blocks)])
 
     def forward(self, x: torch.Tensor,

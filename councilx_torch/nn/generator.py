@@ -27,6 +27,14 @@ No checkpoint is entered while gradients are off, so serving is unchanged.
 With the focus mask the decoder emits RGB + 1 mask channel;
 :func:`composite_with_mask` blends ``mask * rgb + (1 - mask) * input``.
 
+The JAX generator's conv engines (``Conv2dBlock``): the three 7x7 convs
+fold their reflect pad in (``fuse_pad``, by ``boundary_engine``; at the
+default "auto" each is channel-starved, so phase_fused); the decoder's
+upsample convs take the pre-upsample input and run the fused op under
+``fuse_upsample`` (by ``upsample_engine``); ``resblock_fuse_pad`` folds the
+resblock convs' pad in as well. The decoder keeps its ``Upsample2x`` slots
+(their indices are MUNIT's), but each upsample block upsamples itself.
+
 W8A8 serving (``quant``, ``ops/quant.py``) quantizes the JAX package's
 ``quant_scope``: "resblocks" the 16 resblock 3x3 convs; "heavy" also the
 encoder's two stride-2 downsamples and the decoder's two upsample convs
@@ -65,12 +73,14 @@ class ContentEncoder(nn.Module):
                  n_downsample: int = 2, n_res: int = 4, activ: str = "relu",
                  pad_type: str = "reflect", quant: str = "none",
                  quant_scope: str = "resblocks", remat_stages: bool = False,
-                 device=None):
+                 boundary_engine: str = "auto",
+                 resblock_fuse_pad: bool = False, device=None):
         super().__init__()
         self.remat_stages = remat_stages
         layers: List[nn.Module] = [Conv2dBlock(
             input_dim, dim, 7, 1, 3, norm="in", activation=activ,
-            pad_type=pad_type, device=device)]
+            pad_type=pad_type, fuse_pad=True,
+            boundary_engine=boundary_engine, device=device)]
         for _ in range(n_downsample):
             layers.append(Conv2dBlock(
                 dim, 2 * dim, 4, 2, 1, norm="in", activation=activ,
@@ -80,7 +90,7 @@ class ContentEncoder(nn.Module):
             dim *= 2
         layers.append(ResBlocks(n_res, dim, norm="in", activation=activ,
                                 pad_type=pad_type, quant=quant,
-                                device=device))
+                                fuse_pad=resblock_fuse_pad, device=device))
         self.model = nn.ModuleList(layers)
         self.output_dim = dim
 
@@ -96,11 +106,12 @@ class StyleEncoder(nn.Module):
     def __init__(self, input_dim: int = 3, dim: int = 64,
                  style_dim: int = 8, n_downsample: int = 2,
                  activ: str = "relu", pad_type: str = "reflect",
-                 device=None):
+                 boundary_engine: str = "auto", device=None):
         super().__init__()
         layers: List[nn.Module] = [Conv2dBlock(
             input_dim, dim, 7, 1, 3, norm="none", activation=activ,
-            pad_type=pad_type, device=device)]
+            pad_type=pad_type, fuse_pad=True,
+            boundary_engine=boundary_engine, device=device)]
         for _ in range(2):
             layers.append(Conv2dBlock(dim, 2 * dim, 4, 2, 1, norm="none",
                                       activation=activ, pad_type=pad_type,
@@ -137,36 +148,41 @@ class Decoder(nn.Module):
                  ln_stats: str = "two_pass",
                  mask_activation: str = "tanh_affine", quant: str = "none",
                  quant_scope: str = "resblocks", fuse_upsample: bool = True,
-                 remat_stages: bool = False, device=None):
+                 remat_stages: bool = False, boundary_engine: str = "auto",
+                 upsample_engine: str = "dilated",
+                 resblock_fuse_pad: bool = False, device=None):
         super().__init__()
         self.dim = dim
         self.n_res = n_res
         self.remat_stages = remat_stages
         self.sigmoid_mask = (mask_activation == "sigmoid" and output_dim > 3)
         up_quant = quant if quant_scope == "heavy" else "none"
-        # the quantized phase conv takes the upsample's input
-        self.phase_upsample = up_quant != "none" and fuse_upsample
         layers: List[nn.Module] = [ResBlocks(
             n_res, dim, norm="adain", activation=activ, pad_type=pad_type,
-            quant=quant, device=device)]
+            quant=quant, fuse_pad=resblock_fuse_pad, device=device)]
         for _ in range(n_upsample):
             layers.append(Upsample2x())
             layers.append(Conv2dBlock(dim, dim // 2, 5, 1, 2, norm="ln",
                                       activation=activ, pad_type=pad_type,
                                       in_precision=ln_precision,
                                       in_stats=ln_stats, quant=up_quant,
-                                      phase_upsample=self.phase_upsample,
+                                      upsample2x=True,
+                                      fuse_upsample=fuse_upsample,
+                                      upsample_engine=upsample_engine,
                                       device=device))
             dim //= 2
         layers.append(Conv2dBlock(
             dim, output_dim, 7, 1, 3, norm="none",
             activation="none" if self.sigmoid_mask else "tanh",
-            pad_type=pad_type, device=device))
+            pad_type=pad_type, fuse_pad=True,
+            boundary_engine=boundary_engine, device=device))
         self.model = nn.ModuleList(layers)
 
-    def _stage(self, layers, x: torch.Tensor) -> torch.Tensor:
+    @staticmethod
+    def _stage(layers, x: torch.Tensor) -> torch.Tensor:
+        # the upsample blocks upsample (or fuse it) themselves
         for layer in layers:
-            if not (self.phase_upsample and isinstance(layer, Upsample2x)):
+            if not isinstance(layer, Upsample2x):
                 x = layer(x)
         return x
 
@@ -200,9 +216,11 @@ class AdaINGen(nn.Module):
 
     ``ln_precision``/``ln_stats`` set the decoder's MUNIT LayerNorm (see
     MunitLayerNorm); the IN/AdaIN sites always use the instance-norm
-    kernel's numerics. ``quant``/``quant_scope``/``fuse_upsample``: the
-    W8A8 convs; ``remat_stages``: per-stage recompute (module docstring);
-    the state dict is the same in every mode."""
+    kernel's numerics. ``quant``/``quant_scope``: the W8A8 convs;
+    ``fuse_upsample``, ``upsample_engine``, ``boundary_engine`` and
+    ``resblock_fuse_pad``: the conv engines (module docstring);
+    ``remat_stages``: per-stage recompute; the state dict is the same in
+    every mode."""
 
     def __init__(self, input_dim: int = 3, dim: int = 64, style_dim: int = 8,
                  n_downsample: int = 2, n_res: int = 4, activ: str = "relu",
@@ -211,21 +229,30 @@ class AdaINGen(nn.Module):
                  ln_precision: str = "f32", ln_stats: str = "two_pass",
                  mask_activation: str = "tanh_affine", quant: str = "none",
                  quant_scope: str = "resblocks", fuse_upsample: bool = True,
-                 remat_stages: bool = False, device=None):
+                 remat_stages: bool = False, boundary_engine: str = "auto",
+                 upsample_engine: str = "dilated",
+                 resblock_fuse_pad: bool = False, device=None):
         super().__init__()
         if quant_scope not in ("resblocks", "heavy"):
             raise ValueError(f"unknown quant_scope: {quant_scope}")
         output_dim = input_dim + (1 if focus_mask else 0)
-        self.enc_content = ContentEncoder(input_dim, dim, n_downsample,
-                                          n_res, activ, pad_type, quant,
-                                          quant_scope, remat_stages, device)
+        self.enc_content = ContentEncoder(
+            input_dim, dim, n_downsample, n_res, activ, pad_type, quant,
+            quant_scope, remat_stages, boundary_engine=boundary_engine,
+            resblock_fuse_pad=resblock_fuse_pad, device=device)
         self.enc_style = StyleEncoder(input_dim, dim, style_dim,
-                                      n_downsample, activ, pad_type, device)
+                                      n_downsample, activ, pad_type,
+                                      boundary_engine=boundary_engine,
+                                      device=device)
         content_dim = self.enc_content.output_dim
         self.dec = Decoder(content_dim, output_dim, n_downsample, n_res,
                            activ, pad_type, ln_precision, ln_stats,
                            mask_activation, quant, quant_scope,
-                           fuse_upsample, remat_stages, device)
+                           fuse_upsample, remat_stages,
+                           boundary_engine=boundary_engine,
+                           upsample_engine=upsample_engine,
+                           resblock_fuse_pad=resblock_fuse_pad,
+                           device=device)
         self.mlp = MLP(style_dim, Decoder.num_adain_params(content_dim, n_res),
                        mlp_dim, mlp_n_blk, norm="none", activation=activ,
                        device=device)
@@ -277,6 +304,19 @@ class AdaINGen(nn.Module):
         call)."""
         for m in self.quant_blocks().values():
             m.quant_weight(dtype)
+
+
+def engine_kwargs(cfg) -> dict:
+    """AdaINGen's conv-engine arguments from a ``Config``, as the JAX
+    package's Translator and CouncilTrainer pass them: ``parity_mode``
+    takes the reference route (no fused upsample, the reference boundary
+    engine, no ``resblock_fuse_pad``)."""
+    parity = cfg.parity_mode
+    return {"fuse_upsample": cfg.fuse_upsample and not parity,
+            "boundary_engine": ("reference" if parity
+                                else cfg.boundary_engine),
+            "upsample_engine": cfg.upsample_engine,
+            "resblock_fuse_pad": cfg.resblock_fuse_pad and not parity}
 
 
 def composite_with_mask(decoded: torch.Tensor, x_in: torch.Tensor,

@@ -13,6 +13,13 @@ device:
   ``csrc/conv3x3_wgrad.cu`` (f32 sums, returned in k's dtype). On CPU
   tensors both run their plain versions.
 
+:func:`conv3x3_same_zero` is the same kernel at a zero pad of 1 on the
+unpadded input (the "same" conv with zero padding: the interior of
+``ops/pad_conv.py``'s strips engine, an XLA conv in the JAX package), with
+the same VJP: its dgrad is the kernel at pad 1, its wgrad K2 with a zero pad
+of 1 in its loads. Neither pads a copy. It counts its launches on
+``conv3x3_valid``'s counters, as the same kernel.
+
 Both conv calls take the kernel weight :func:`_kernel_weight` makes from
 k, a relayout copy unless k is laid out as :func:`hwio_weight` makes it,
 as the model's blocks do.
@@ -70,21 +77,34 @@ def _flip_weight(k: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return k.flip((0, 1)).transpose(2, 3).to(dtype).contiguous()
 
 
-def _pad2(g: torch.Tensor) -> torch.Tensor:
-    """Zero-pad NHWC g by 2 on H and W (contiguous NHWC result)."""
-    return F.pad(g, (0, 0, 2, 2, 2, 2)).contiguous()
+def _zero_pad(t: torch.Tensor, p: int) -> torch.Tensor:
+    """Zero-pad NHWC t by p on H and W (contiguous NHWC result)."""
+    return F.pad(t, (0, 0, p, p, p, p)).contiguous()
 
 
-def conv3x3_dgrad_reference(g: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+def conv3x3_same_zero_reference(x: torch.Tensor,
+                                k: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`conv3x3_same_zero`: x (B, H, W, C) zero-padded
+    by 1, then :func:`conv3x3_valid_reference` -> (B, H, W, O)."""
+    return conv3x3_valid_reference(_zero_pad(x, 1), k)
+
+
+def conv3x3_dgrad_reference(g: torch.Tensor, k: torch.Tensor,
+                            pad: int = 2) -> torch.Tensor:
     """Plain version of d(xp), as ``_bwd_rule`` computes it: g (B, H, W, O)
     zero-padded by 2, VALID-convolved with the flipped, in/out-swapped k ->
-    (B, H+2, W+2, C) in g's dtype."""
-    return conv3x3_valid_reference(_pad2(g), _flip_weight(k, g.dtype))
+    (B, H+2, W+2, C) in g's dtype. ``pad`` 1: d(x) of the pad-1 forward,
+    (B, H, W, C)."""
+    return conv3x3_valid_reference(_zero_pad(g, pad), _flip_weight(k, g.dtype))
 
 
-def conv3x3_wgrad_reference(xp: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def conv3x3_wgrad_reference(xp: torch.Tensor, g: torch.Tensor,
+                            pad: int = 0) -> torch.Tensor:
     """Plain version of dk: dk[dy,dx,c,o] = sum_{b,i,j} xp[b,i+dy,j+dx,c] *
-    g[b,i,j,o], summed in f32 (f64 for f64 input) -> (3, 3, C, O)."""
+    g[b,i,j,o], summed in f32 (f64 for f64 input) -> (3, 3, C, O); with
+    ``pad`` 1, xp is the unpadded x of the pad-1 forward, zero-padded here."""
+    if pad:
+        xp = _zero_pad(xp, pad)
     acc = _acc_dtype(xp)
     _, hp, wp, c = xp.shape
     h, w, o = hp - 2, wp - 2, g.shape[-1]
@@ -163,7 +183,8 @@ def _wgrad_lib() -> ctypes.CDLL:
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -209,7 +230,7 @@ def _launch_conv(name: str, x: torch.Tensor, wk: torch.Tensor, pad: int,
     o = wk.shape[3] if dgrad else wk.shape[2]
     _check_cuda(name, x, (3, 3, c, o), wk, pad)
     want = (3, 3, c, o) if dgrad else (3, 3, o, c)
-    if pad not in (0, 2) or tuple(wk.shape) != want:
+    if pad not in (0, 1, 2) or tuple(wk.shape) != want:
         raise ValueError(f"{name}: pad {pad}, weight {tuple(wk.shape)}")
     h, w = hin + 2 * pad - 2, win + 2 * pad - 2
     if b * h * w > _MAX_PIXELS:
@@ -230,43 +251,57 @@ def _launch_conv(name: str, x: torch.Tensor, wk: torch.Tensor, pad: int,
     return y
 
 
-def _forward(xp: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+def _forward(xp: torch.Tensor, k: torch.Tensor, pad: int = 0) -> torch.Tensor:
     if xp.device.type == "cpu":
-        return conv3x3_valid_reference(xp, k)
-    return _forward_cuda(xp, k)
+        y = (conv3x3_same_zero_reference(xp, k) if pad
+             else conv3x3_valid_reference(xp, k))
+        # not the plain version's channels_last view: the engines splice
+        # their border strips into this output in place, which autograd
+        # forbids on a view made inside a Function
+        return y.clone() if y._is_view() else y
+    return _forward_cuda(xp, k, pad)
 
 
-def _forward_cuda(xp: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """The forward kernel, its channels padded to multiples of 8."""
-    _check_channels("conv3x3_valid", xp, k.shape, 2)
+def _forward_cuda(xp: torch.Tensor, k: torch.Tensor,
+                  pad: int = 0) -> torch.Tensor:
+    """The forward kernel at a zero pad of ``pad`` (0 or 1), its channels
+    padded to multiples of 8."""
+    name = "conv3x3_same_zero" if pad else "conv3x3_valid"
+    _check_channels(name, xp, k.shape, 2)
     c, o = k.shape[2], k.shape[3]
     wk = _pad_weight(_kernel_weight(k, xp.dtype), _up8(o), _up8(c))
-    y = _launch_conv("conv3x3_valid", _pad_last(xp, _up8(c)), wk, 0, False)
+    y = _launch_conv(name, _pad_last(xp, _up8(c)), wk, pad, False)
     conv3x3_valid.launches += 1
     return y if o == y.shape[-1] else y[..., :o].contiguous()
 
 
-def conv3x3_dgrad(g: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+def conv3x3_dgrad(g: torch.Tensor, k: torch.Tensor,
+                  pad: int = 2) -> torch.Tensor:
     """d(xp) of :func:`conv3x3_valid` for the cotangent g (B, H, W, O) and
-    the weight k (3, 3, C, O): (B, H+2, W+2, C) in g's dtype.
+    the weight k (3, 3, C, O): (B, H+2, W+2, C) in g's dtype; with ``pad``
+    1, d(x) (B, H, W, C) of :func:`conv3x3_same_zero`.
 
-    On a CUDA tensor: the forward kernel on g with a zero pad of 2 that its
-    loads supply (no padded copy of g), reading the forward's kernel weight
-    with the taps flipped and transposed as the flipped, in/out-swapped
-    weight (no flipped copy) -- K1 run as dgrad, as ``_bwd_rule`` runs it;
-    ``conv3x3_dgrad.launches`` counts those launches."""
+    On a CUDA tensor: the forward kernel on g with a zero pad of 2 (1) that
+    its loads supply (no padded copy of g), reading the forward's kernel
+    weight with the taps flipped and transposed as the flipped,
+    in/out-swapped weight (no flipped copy) -- K1 run as dgrad, as
+    ``_bwd_rule`` runs it; ``conv3x3_dgrad.launches`` counts those
+    launches."""
     if g.device.type == "cpu":
-        return conv3x3_dgrad_reference(g, k)
-    return _dgrad_cuda(g, k)
+        return conv3x3_dgrad_reference(g, k, pad)
+    return _dgrad_cuda(g, k, pad)
 
 
-def _dgrad_cuda(g: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+def _dgrad_cuda(g: torch.Tensor, k: torch.Tensor,
+                pad: int = 2) -> torch.Tensor:
     """The dgrad kernel, its channels padded to multiples of 8."""
     _check_channels("conv3x3_dgrad", g, k.shape, 3)
+    if pad not in (1, 2):
+        raise ValueError(f"conv3x3_dgrad: pad {pad}")
     c, o = k.shape[2], k.shape[3]
     wk = _pad_weight(_kernel_weight(k, g.dtype), _up8(o), _up8(c))
     dxp = _launch_conv("conv3x3_dgrad", _pad_last(g.contiguous(), _up8(o)),
-                       wk, 2, True)
+                       wk, pad, True)
     conv3x3_dgrad.launches += 1
     return dxp if c == dxp.shape[-1] else dxp[..., :c].contiguous()
 
@@ -312,40 +347,46 @@ def _tile_counters(device: torch.device, stream: int,
 
 
 def conv3x3_wgrad(xp: torch.Tensor, g: torch.Tensor,
-                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                  out_dtype: torch.dtype = torch.float32,
+                  pad: int = 0) -> torch.Tensor:
     """dk of :func:`conv3x3_valid`: xp (B, H+2, W+2, C), g (B, H, W, O) ->
-    (3, 3, C, O) in ``out_dtype``, summed in f32.
+    (3, 3, C, O) in ``out_dtype``, summed in f32; with ``pad`` 1, dk of
+    :func:`conv3x3_same_zero` from its unpadded input x (B, H, W, C).
 
     On a CUDA tensor: the kernel of ``csrc/conv3x3_wgrad.cu``, split over
     B*H*W with its f32 partials summed in a fixed order (bit-deterministic;
-    bf16: one launch, TMA + wgmma, the sum in the same launch);
-    ``conv3x3_wgrad.launches`` counts its calls."""
+    bf16: one launch, TMA + wgmma, the sum in the same launch), the zero pad
+    in its loads; ``conv3x3_wgrad.launches`` counts its calls."""
     if xp.device.type == "cpu":
-        return conv3x3_wgrad_reference(xp, g).to(out_dtype)
-    return _wgrad_cuda(xp, g, out_dtype)
+        return conv3x3_wgrad_reference(xp, g, pad).to(out_dtype)
+    return _wgrad_cuda(xp, g, out_dtype, pad)
 
 
-def _wgrad_cuda(xp: torch.Tensor, g: torch.Tensor,
-                out_dtype: torch.dtype) -> torch.Tensor:
+def _wgrad_cuda(xp: torch.Tensor, g: torch.Tensor, out_dtype: torch.dtype,
+                pad: int = 0) -> torch.Tensor:
     """The wgrad kernel, its channels padded to multiples of 8."""
+    if pad not in (0, 1):
+        raise ValueError(f"conv3x3_wgrad: pad {pad}")
     if xp.dim() != 4 or g.dim() != 4 or tuple(g.shape[:3]) != (
-            xp.shape[0], xp.shape[1] - 2, xp.shape[2] - 2):
+            xp.shape[0], xp.shape[1] + 2 * pad - 2,
+            xp.shape[2] + 2 * pad - 2):
         raise ValueError(f"conv3x3_wgrad: g {tuple(g.shape)} does not match "
-                         f"xp {tuple(xp.shape)}")
+                         f"xp {tuple(xp.shape)} at pad {pad}")
     c, o = xp.shape[-1], g.shape[-1]
     dk = _launch_wgrad(_pad_last(xp, _up8(c)),
-                       _pad_last(g.contiguous(), _up8(o)), out_dtype)
+                       _pad_last(g.contiguous(), _up8(o)), out_dtype, pad)
     conv3x3_wgrad.launches += 1
     return dk if dk.shape[2:] == (c, o) else dk[:, :, :c, :o].contiguous()
 
 
-def _launch_wgrad(xp: torch.Tensor, g: torch.Tensor,
-                  out_dtype: torch.dtype) -> torch.Tensor:
-    """The conv3x3_wgrad.cu kernel on CUDA xp and g whose channels are
-    multiples of 8 -> dk (3, 3, C, O) in ``out_dtype``."""
-    b, hp, wp, c = xp.shape
+def _launch_wgrad(xp: torch.Tensor, g: torch.Tensor, out_dtype: torch.dtype,
+                  pad: int) -> torch.Tensor:
+    """The conv3x3_wgrad.cu kernel on CUDA xp (read zero-padded by ``pad``)
+    and g whose channels are multiples of 8 -> dk (3, 3, C, O) in
+    ``out_dtype``."""
+    b, hx, wx, c = xp.shape
     o = g.shape[-1]
-    _check_cuda("conv3x3_wgrad", xp, (3, 3, c, o), g)
+    _check_cuda("conv3x3_wgrad", xp, (3, 3, c, o), g, pad)
     if g.dtype != xp.dtype:
         raise ValueError(f"conv3x3_wgrad: g is {g.dtype}, xp {xp.dtype}")
     if out_dtype not in _DTYPE_CODES:
@@ -353,7 +394,7 @@ def _launch_wgrad(xp: torch.Tensor, g: torch.Tensor,
     g = g.contiguous()
     if g.data_ptr() % 16:
         raise ValueError("conv3x3_wgrad: inputs must be 16-byte aligned")
-    h, w = hp - 2, wp - 2
+    h, w = hx + 2 * pad - 2, wx + 2 * pad - 2
     if b * h * w > _MAX_PIXELS:
         raise ValueError(f"conv3x3_wgrad: {b * h * w} pixels exceed the "
                          f"kernel's int32 indexing")
@@ -377,7 +418,7 @@ def _launch_wgrad(xp: torch.Tensor, g: torch.Tensor,
             counters = None
         err = _wgrad_lib().councilx_conv3x3_wgrad(
             xp.data_ptr(), g.data_ptr(), part.data_ptr(), counters,
-            dk.data_ptr(), b, h, w, c, o,
+            dk.data_ptr(), b, h, w, c, o, pad,
             _DTYPE_CODES[xp.dtype], _DTYPE_CODES[out_dtype], splits, per,
             stream)
     if err != 0:
@@ -406,6 +447,40 @@ class Conv3x3Valid(torch.autograd.Function):
         dk = (conv3x3_wgrad(xp, g.to(xp.dtype), k.dtype)
               if ctx.needs_input_grad[1] else None)
         return dxp, dk, None
+
+
+class Conv3x3SameZero(torch.autograd.Function):
+    """``conv3x3_same_zero`` with the VJP of a zero-padded conv: K1′ at pad
+    1, K2 with the pad in its loads."""
+
+    @staticmethod
+    def forward(ctx, x, k, save: bool):
+        y = _forward(x, k, 1)
+        if save:
+            ctx.save_for_backward(x, k)
+            if x.device.type == "cuda":
+                conv3x3_valid.grad_launches += 1
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, k = ctx.saved_tensors
+        g = g.contiguous()
+        dx = conv3x3_dgrad(g, k, 1) if ctx.needs_input_grad[0] else None
+        dk = (conv3x3_wgrad(x, g.to(x.dtype), k.dtype, 1)
+              if ctx.needs_input_grad[1] else None)
+        return dx, dk, None
+
+
+def conv3x3_same_zero(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """"Same" 3x3 stride-1 conv with a zero pad of 1: x (B, H, W, C) NHWC
+    contiguous, k (3, 3, C, O) HWIO -> (B, H, W, O) in x's dtype, f32
+    accumulation; differentiable on every device. On a CUDA tensor K1 at
+    pad 1 (the zero border from its TMA loads, no padded copy), counted on
+    ``conv3x3_valid.launches`` (and ``grad_launches`` under autograd); a
+    failed launch raises."""
+    save = torch.is_grad_enabled() and (x.requires_grad or k.requires_grad)
+    return Conv3x3SameZero.apply(x, k, save)
 
 
 def conv3x3_valid(xp: torch.Tensor, k: torch.Tensor) -> torch.Tensor:

@@ -56,7 +56,8 @@ from councilx_torch.losses.focus import (mask_binary_loss, mask_size_loss,
 from councilx_torch.losses.gan import gan_dis_loss, gan_gen_loss
 from councilx_torch.nn.blocks import init_parameters
 from councilx_torch.nn.discriminator import MsImageDis
-from councilx_torch.nn.generator import AdaINGen, composite_with_mask
+from councilx_torch.nn.generator import (AdaINGen, composite_with_mask,
+                                         engine_kwargs)
 from councilx_torch.nn.vgg import (compute_vgg_loss, load_vgg,
                                    vgg_target_features)
 from councilx_torch.train.optim import Adam, AdamState, make_optimizers
@@ -206,7 +207,8 @@ class CouncilTrainer:
             pad_type=g.pad_type, mlp_dim=g.mlp_dim, mlp_n_blk=g.mlp_n_blk,
             focus_mask=self.focus, ln_precision=self.ln_precision,
             ln_stats=self.ln_stats, mask_activation=self.mask_activation,
-            remat_stages=cfg.remat_stages, device=self.device)
+            remat_stages=cfg.remat_stages, **engine_kwargs(cfg),
+            device=self.device)
 
     def make_dis(self, input_dim: int) -> MsImageDis:
         d = self.cfg.dis

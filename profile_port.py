@@ -22,6 +22,11 @@ time per call (the sum of every kernel's duration in the trace) and the
 device's busy share (kernel time over wall time), then the kernel time per
 call by class of kernel and the heaviest kernels by name. ``--out DIR``
 also writes the summaries to DIR/profile.json.
+
+``--engines`` profiles instead the generator's conv-engine settings of
+``chip_smoke.py``'s engines phase: serving (1.) under each of
+``chip_smoke.ENGINE_SERVE``, and the train step (2.) under each of
+``chip_smoke.ENGINE_TRAIN``, unquantized.
 """
 
 import argparse
@@ -156,6 +161,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
                     help="directory for profile.json, the summaries")
+    ap.add_argument("--engines", action="store_true",
+                    help="profile the conv-engine settings instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_port: no CUDA device")
@@ -166,14 +173,62 @@ def main():
     card = chip_smoke.card()
     print(f"[profile] {torch.cuda.get_device_name(0)} ({card}); torch "
           f"{torch.__version__}", flush=True)
-    cfg = Config.from_dict(chip_smoke.FLAGSHIP)
-    tr = Translator(cfg, device="cuda")
-    gen = tr.init_members(1, seed=0)[0]
+    paths = profile_engines() if args.engines else profile_paths()
+    if args.out:
+        with open(os.path.join(args.out, "profile.json"), "w") as f:
+            json.dump({"card": card, "paths": paths}, f, indent=1)
+    print(card)
+
+
+def _inputs(cfg):
     rng = np.random.default_rng(0)
     b, hw = chip_smoke.BATCH, chip_smoke.HW
     x8 = torch.from_numpy(rng.integers(0, 256, (b, hw, hw, 3),
                                        dtype=np.uint8)).cuda()
     z8 = torch.randn(b, cfg.gen.style_dim).cuda()
+    x_a, x_b = (torch.from_numpy(rng.uniform(-1, 1, (b, hw, hw, 3))
+                                 .astype(np.float32)).cuda()
+                for _ in range(2))
+    return x8, z8, x_a, x_b
+
+
+def _train_profile(raw: dict, label: str, x_a, x_b) -> dict:
+    trainer = CouncilTrainer(Config.from_dict(raw), device="cuda")
+    holder = {"state": trainer.init_state(seed=0)}
+
+    def step():
+        holder["state"], _ = trainer.train_step(holder["state"], x_a, x_b)
+
+    return profile(step, 3, 3, label)
+
+
+def profile_engines() -> list:
+    """The serving call and the train step under each conv-engine setting
+    of chip_smoke's engines phase, from the same weights."""
+    cfg = Config.from_dict(chip_smoke.FLAGSHIP)
+    sd = Translator(cfg, device="cuda").init_members(1, seed=0)[0].state_dict()
+    x8, z8, x_a, x_b = _inputs(cfg)
+    out = []
+    for name, over in chip_smoke.ENGINE_SERVE:
+        tr = Translator(Config.from_dict({**chip_smoke.FLAGSHIP, **over}),
+                        device="cuda")
+        gen = tr.load_members([sd])[0]
+        out.append(profile(lambda: tr.translate_u8io_device(gen, x8, z=z8),
+                           3, 5, f"serve_bucket8_{name}"))
+    for name, over in chip_smoke.ENGINE_TRAIN:
+        out.append(_train_profile({**chip_smoke.HEADLINE, **over},
+                                  f"train_step_{name}", x_a, x_b))
+        torch.cuda.empty_cache()
+    return out
+
+
+def profile_paths() -> list:
+    """Serving (plain and W8A8) and the train step, as the module
+    docstring lists them."""
+    cfg = Config.from_dict(chip_smoke.FLAGSHIP)
+    tr = Translator(cfg, device="cuda")
+    gen = tr.init_members(1, seed=0)[0]
+    x8, z8, x_a, x_b = _inputs(cfg)
     serve = [profile(lambda: tr.translate_u8io_device(gen, x8, z=z8), 3, 5,
                      "serve_bucket8")]
     sd = gen.state_dict()
@@ -181,23 +236,8 @@ def main():
     serve += [profile_quant(mode, scope, sd, x8, z8)
               for scope in ("resblocks", "heavy")
               for mode in ("w8a8", "w8a8_static")]
-
-    trainer = CouncilTrainer(Config.from_dict(chip_smoke.HEADLINE),
-                             device="cuda")
-    holder = {"state": trainer.init_state(seed=0)}
-    x_a, x_b = (torch.from_numpy(rng.uniform(-1, 1, (b, hw, hw, 3))
-                                 .astype(np.float32)).cuda()
-                for _ in range(2))
-
-    def step():
-        holder["state"], _ = trainer.train_step(holder["state"], x_a, x_b)
-
-    train = profile(step, 3, 3, "train_step")
-    if args.out:
-        with open(os.path.join(args.out, "profile.json"), "w") as f:
-            json.dump({"card": card, "paths": serve + [train]}, f,
-                      indent=1)
-    print(card)
+    return serve + [_train_profile(chip_smoke.HEADLINE, "train_step", x_a,
+                                   x_b)]
 
 
 if __name__ == "__main__":

@@ -9,6 +9,7 @@ path's shapes, each input read once and each output written once, against
 989 TFLOP/s (tensor cores) and 3.35 TB/s.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -57,6 +58,17 @@ CONV = (8, 64, 64, 256, 256)        # xp (8, 66, 66, 256), k (3, 3, 256, 256)
     # int8 written; the per-image mode counts x once too
     ("quant_act", ((8, 64, 64, 256), 1), 0.007671, "bytes"),
     ("quant_act_dynamic", ((8, 64, 64, 256), 1), 0.007671, "bytes"),
+    # the conv engines' shapes: each upsample phase conv 77.31 G
+    # operations (to 4x the block's outputs), the resblock conv at pad 1
+    # (unpadded x) 38.65 G
+    ("conv3x3", chip_smoke.PHASE_CONV_SITES["up1"], 0.07817, "operations"),
+    ("conv3x3_dgrad", chip_smoke.PHASE_CONV_SITES["up2"], 0.07817,
+     "operations"),
+    ("conv3x3_wgrad", chip_smoke.PHASE_CONV_SITES["up2"], 0.07817,
+     "operations"),
+    ("conv3x3_same_zero", chip_smoke.PAD1_SITE, 0.03908, "operations"),
+    ("conv3x3_dgrad_pad1", chip_smoke.PAD1_SITE, 0.03908, "operations"),
+    ("conv3x3_wgrad_pad1", chip_smoke.PAD1_SITE, 0.03908, "operations"),
 ])
 def test_bound_matches_the_hand_arithmetic(name, shape, ms, by):
     got, got_by = chip_smoke.bound_ms(name, shape)
@@ -77,6 +89,74 @@ def test_conv_work_counts_each_tensor_once():
     # f32 (parity mode): twice the bytes, against the f32 FMA rate
     ops32, nbytes32, kind32 = chip_smoke.kernel_work("conv3x3", CONV, 4)
     assert (ops32, nbytes32, kind32) == (ops, 2 * nbytes, "f32")
+
+
+def test_pad1_work_reads_the_unpadded_input():
+    ops, nbytes, _ = chip_smoke.kernel_work("conv3x3_same_zero",
+                                            chip_smoke.PAD1_SITE)
+    assert ops == chip_smoke.kernel_work("conv3x3", CONV)[0]
+    # x 16.78 MB (no padded copy) + y 16.78 MB + k 1.18 MB
+    assert nbytes == 2 * (2 * 8 * 64 * 64 * 256 + 9 * 256 * 256)
+
+
+def _count_k1(monkeypatch):
+    """Counts K1's forward calls (at pad 0 or 1) on the CPU, where the
+    wrappers run their plain versions and count no launch."""
+    from councilx_torch.ops import conv3x3 as conv_ops
+    calls = []
+    real = conv_ops._forward
+
+    def forward(x, k, pad=0):
+        calls.append(pad)
+        return real(x, k, pad)
+
+    monkeypatch.setattr(conv_ops, "_forward", forward)
+    return calls
+
+
+ENGINE_RAW = {"compute_dtype": "float32", "council": {"council_size": 2},
+              "gen": {"dim": 8, "mlp_dim": 16, "style_dim": 8,
+                      "n_downsample": 2, "n_res": 4},
+              "dis": {"dim": 8, "n_layer": 2, "num_scales": 2},
+              "batch_size": 1, "crop_image_height": 32,
+              "crop_image_width": 32}
+
+
+@pytest.mark.parametrize("setting", [n for n, _ in chip_smoke.ENGINE_SERVE])
+def test_engine_conv_per_fwd_is_the_generators_k1_sites(monkeypatch,
+                                                        setting):
+    """The engines phase's K1 launches per serving forward are the K1 calls
+    of one port forward (n_res 4) under the same settings, every resblock
+    conv at pad 1 under resblock_fuse_pad."""
+    from councilx_torch.config import Config
+    from councilx_torch.inference.translate import Translator
+
+    over = dict(chip_smoke.ENGINE_SERVE)[setting]
+    tr = Translator(Config.from_dict({**ENGINE_RAW, **over}), device="cpu")
+    gen = tr.init_members(1, seed=0)[0]
+    calls = _count_k1(monkeypatch)
+    tr.translate(gen, np.zeros((1, 32, 32, 3), np.float32),
+                 np.zeros((1, 8), np.float32))
+    assert len(calls) == chip_smoke.engine_conv_per_fwd(over)
+    assert calls.count(1) == (16 if over.get("resblock_fuse_pad") else 0)
+
+
+@pytest.mark.parametrize("setting", [n for n, _ in chip_smoke.ENGINE_TRAIN])
+def test_engine_train_conv_is_the_steps_k1_sites(monkeypatch, setting):
+    """The engines phase's K1 sites per member and train step are the K1
+    calls of one port train step (council-2, n_res 4) under the same
+    settings."""
+    from councilx_torch.config import Config
+    from councilx_torch.train.trainer import CouncilTrainer
+
+    over = dict(chip_smoke.ENGINE_TRAIN)[setting]
+    trainer = CouncilTrainer(Config.from_dict({**ENGINE_RAW, **over}),
+                             device="cpu")
+    state = trainer.init_state(seed=0)
+    x = np.zeros((1, 32, 32, 3), np.float32)
+    calls = _count_k1(monkeypatch)
+    trainer.train_step(state, x, x)
+    assert len(calls) == 2 * chip_smoke.engine_train_conv(over)
 
 
 def test_norm_bound_is_set_by_the_bytes_not_the_arithmetic():

@@ -19,6 +19,8 @@ from councilx_torch.config import Config, load_config
 from councilx_torch.inference.translate import Translator
 from councilx_torch.ops.conv3x3 import (conv3x3_dgrad,
                                         conv3x3_dgrad_reference,
+                                        conv3x3_same_zero,
+                                        conv3x3_same_zero_reference,
                                         conv3x3_valid, conv3x3_valid_reference,
                                         conv3x3_wgrad, conv3x3_wgrad_reference,
                                         hwio_weight)
@@ -563,6 +565,45 @@ def test_conv3x3_at_channels_not_multiples_of_8(cuda, dtype, c, o):
     _close(y, conv3x3_valid_reference(xp.float(), k.float()), rel)
     _close(dxp, conv3x3_dgrad_reference(gy.float(), k.float()), rel)
     _close(dk, conv3x3_wgrad_reference(xp, gy),
+           2 ** -7 if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,w,c,o", [(8, 64, 64, 256, 256), (3, 17, 45, 72,
+                                                               136),
+                                       (2, 33, 31, 200, 264),
+                                       (2, 9, 7, 12, 20)])
+def test_conv3x3_pad1_kernels_match_plain(cuda, dtype, b, h, w, c, o):
+    """K1 at a zero pad of 1 on the unpadded input (the strips engine's
+    interior), its dgrad at pad 1 and K2 with the pad in its loads, each
+    once per call through the autograd Function, against the plain
+    versions; no pad op runs on the card where C and O are multiples of 8
+    (others have their channels zero-padded around the same kernels)."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    x = torch.randn(b, h, w, c, device=cuda, generator=g).to(dtype)
+    k = hwio_weight(torch.randn(o, c, 3, 3, device=cuda, generator=g)
+                    / (9 * c) ** 0.5, dtype)
+    gy = torch.randn(b, h, w, o, device=cuda, generator=g).to(dtype)
+    xl, kl = x.clone().requires_grad_(), k.detach().clone().requires_grad_()
+    counts = (conv3x3_valid.launches, conv3x3_valid.grad_launches,
+              conv3x3_dgrad.launches, conv3x3_wgrad.launches)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        y = conv3x3_same_zero(xl, kl)
+        dx, dk = torch.autograd.grad(y, (xl, kl), gy)
+        torch.cuda.synchronize()
+    assert (conv3x3_valid.launches, conv3x3_valid.grad_launches,
+            conv3x3_dgrad.launches, conv3x3_wgrad.launches) == tuple(
+                n + 1 for n in counts)
+    names = [e.key for e in prof.key_averages()]
+    if c % 8 == 0 and o % 8 == 0:
+        assert not [n for n in names if "pad" in n.lower()], names
+    assert y.shape == (b, h, w, o) and dx.shape == x.shape
+    rel = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+    _close(y, conv3x3_same_zero_reference(x.float(), k.float()), rel)
+    _close(dx, conv3x3_dgrad_reference(gy.float(), k.float(), 1), rel)
+    _close(dk, conv3x3_wgrad_reference(x, gy, 1),
            2 ** -7 if dtype == torch.bfloat16 else 1e-4)
 
 

@@ -8,7 +8,12 @@ same numpy images and style codes go through both. fp32 on the CPU.
   statistics, reference boundary and upsample ops);
 * dim 32 (content dim 128, so JAX's ``conv3x3_eligible`` passes) against
   JAX with ``use_pallas`` and ``use_pallas_norm``, its Pallas kernels run
-  in interpret mode.
+  in interpret mode;
+* dim 8 under the conv engines, outside parity mode (f32, ``norm_stats:
+  two_pass``, the IN statistics the port's IN sites take): the JAX
+  defaults (phase_fused 7x7 convs, the dilated upsample), ``upsample_engine:
+  phase`` and ``ln_fused``, and the defaults with ``resblock_fuse_pad``
+  (the strips engine at the resblocks, on K1's pad-1 op in the port).
 """
 
 import contextlib
@@ -40,10 +45,18 @@ def _raw(dim, **over):
     return raw
 
 
+ENGINES = {
+    "defaults_dim8": {},
+    "phase_dim8": {"upsample_engine": "phase"},
+    "ln_fused_dim8": {"upsample_engine": "ln_fused"},
+    "resblock_fuse_pad_dim8": {"resblock_fuse_pad": True},
+}
 CASES = {
     "parity_dim8": (_raw(8, parity_mode=True), contextlib.nullcontext),
     "pallas_dim32": (_raw(32, use_pallas=True, use_pallas_norm=True),
                      pltpu.force_tpu_interpret_mode),
+    **{name: (_raw(8, norm_stats="two_pass", **over),
+              contextlib.nullcontext) for name, over in ENGINES.items()},
 }
 
 
@@ -106,3 +119,38 @@ def test_decode(pair):
     # fp32 through the AdaIN resblocks, two upsample+LN stages and the
     # tanh output conv
     np.testing.assert_allclose(got, want["decoded"], atol=1e-4, rtol=1e-4)
+
+
+def _route(gen):
+    """The engines a port AdaINGen's blocks take: (fused upsample blocks,
+    boundary engines of the fuse_pad blocks, resblock convs with fuse_pad),
+    or "plain" where a 7x7 block folds no pad."""
+    from councilx_torch.nn.blocks import Conv2dBlock
+    blocks = [m for m in gen.modules() if isinstance(m, Conv2dBlock)]
+    return (sum(m.fused_upsample for m in blocks),
+            sorted({m.boundary_engine if m.fuse_pad else "plain"
+                    for m in blocks if m.kernel_size == 7}),
+            sum(m.fuse_pad for m in blocks if m.kernel_size == 3))
+
+
+@pytest.mark.parametrize("parity", (False, True))
+def test_parity_mode_takes_the_reference_route(parity):
+    """Under ``parity_mode`` both packages' Translator and CouncilTrainer
+    build the generator on the reference route (no fused upsample, the
+    reference boundary engine, no resblock_fuse_pad), whatever the engine
+    keys say; outside it they take the keys."""
+    from councilx.train.trainer import CouncilTrainer as JTrainer
+    from councilx_torch.train.trainer import CouncilTrainer
+
+    raw = _raw(8, parity_mode=parity, upsample_engine="ln_fused",
+               boundary_engine="phase", resblock_fuse_pad=True)
+    jcfg, cfg = JConfig.from_dict(raw), Config.from_dict(raw)
+    for jgen in (JTranslator(jcfg).gen, JTrainer(jcfg).gen):
+        assert (jgen.fuse_upsample, jgen.boundary_engine,
+                jgen.resblock_fuse_pad) == (
+            (False, "reference", False) if parity
+            else (True, "phase", True))
+    want = ((0, ["reference"], 0) if parity else (2, ["phase"], 8))
+    for gen in (Translator(cfg, device="cpu").make_gen(),
+                CouncilTrainer(cfg, device="cpu").make_gen()):
+        assert _route(gen) == want

@@ -48,14 +48,16 @@ def test_port_imports_without_jax_or_councilx():
     # ckpt (x4), inference (x3), data (x2), cli (x2), losses (x4), train
     # (x3) and the package itself; since the eval slice also eval (x5),
     # cli/eval, cli/fid, cli/convert and tools (x2); since the quant slice
-    # ops/quant, ops/upsample_conv and tools (x2 more)
-    assert n >= 43, r.stdout
+    # ops/quant, ops/upsample_conv and tools (x2 more); since the conv
+    # engines ops/pad_conv
+    assert n >= 44, r.stdout
     for name in ("councilx_torch.eval.inception", "councilx_torch.eval.hook",
                  "councilx_torch.cli.eval", "councilx_torch.cli.fid",
                  "councilx_torch.cli.convert",
                  "councilx_torch.tools.toy_e2e",
                  "councilx_torch.ops.quant",
                  "councilx_torch.ops.upsample_conv",
+                 "councilx_torch.ops.pad_conv",
                  "councilx_torch.tools.calibrate_quant",
                  "councilx_torch.tools.quant_quality",
                  "councilx_torch.nn.vgg",

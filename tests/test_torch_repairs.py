@@ -77,8 +77,8 @@ def test_conv_forward_and_dgrad_pad_channels_to_multiples_of_8(
 def test_conv_wgrad_pads_channels_to_multiples_of_8(monkeypatch, c, o):
     seen = []
 
-    def launch(xp, g, out_dtype):
-        assert xp.shape[-1] % 8 == 0 and g.shape[-1] % 8 == 0
+    def launch(xp, g, out_dtype, pad):
+        assert xp.shape[-1] % 8 == 0 and g.shape[-1] % 8 == 0 and pad == 0
         seen.append((tuple(xp.shape), tuple(g.shape)))
         return conv_ops.conv3x3_wgrad_reference(xp, g).to(out_dtype)
 

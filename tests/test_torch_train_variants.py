@@ -41,3 +41,17 @@ def test_two_steps_match_jax(case):
         assert {"loss_gen_adv_a2b", "loss_gen_adv_b2a"} <= set(pm[0])
     if case == "focus_off":
         assert not any("mask" in k for k in pm[0])
+
+
+def test_one_step_with_the_conv_engines_matches_jax():
+    """One step outside parity mode (f32, two-pass statistics) under the
+    JAX defaults plus ``upsample_engine: phase`` and ``resblock_fuse_pad``:
+    the phase_fused 7x7 convs, the phase upsample conv and the resblocks'
+    strips engine on both sides, the same tolerances."""
+    pair = Pair(parity_mode=False, norm_stats="two_pass",
+                upsample_engine="phase", resblock_fuse_pad=True)
+    assert pair.jt.gen.upsample_engine == "phase"
+    assert pair.jt.gen.resblock_fuse_pad and pair.jt.gen.fuse_upsample
+    jm, pm, want, ps = pair.run(1)
+    assert_metrics_close(jm, pm, rtol=1e-5)
+    assert max_param_diff(want, ps) <= 2 * LR
