@@ -23,10 +23,12 @@ Phases, in order; any failure raises and exits non-zero:
    rstd held too, also at serving's bucket 64 (its plain launch);
 4. the serving slice at full width (council-4, 256px, dim 64, n_res 4,
    bf16, random weights from a seed): 4 members saved as a reference
-   ``.pt``, loaded through ``councilx_torch.cli.serve.build_engine``,
-   concurrent uint8 requests from threads, results checked against direct
-   ``Translator`` calls and the kernels' launch counts checked per member
-   forward; then the council ensemble (``member="all"``);
+   ``.pt``, loaded through ``councilx_torch.cli.serve.build_engine`` (on
+   its default route: each bucket a captured CUDA graph), concurrent uint8
+   requests from threads, results checked against direct ``Translator``
+   calls; the kernels' launches counted from before the engine's warm-up
+   (one eager run and one capture per bucket; the requests replay) and
+   every batch a replay; then the council ensemble (``member="all"``);
 5. accuracy of the serving path: the card's bf16 and f32 kernel paths
    against the port on the CPU in f32, which uses the plain versions;
 6. the train step at full width (``bench.py::headline_config``: council-4,
@@ -42,9 +44,12 @@ Phases, in order; any failure raises and exits non-zero:
    ``python -m councilx_torch.cli.train``'s ``main`` for 6 steps (log
    every 2, sample sheets and async snapshots every 3), then ``--resume``
    for 2 more: resumed at 6, ended at 8, finite metrics logged at steps 2,
-   4, 6 and 8, the launch invariants over the loop's steps, every kernel
-   launched; then ``cli.translate --member all`` on testA and one
-   ``cli.gui`` render from the step-8 snapshot. Prints the loop's img/s
+   4, 6 and 8, both runs on the captured step, the launch invariants over
+   the loop's eager and captured steps, every kernel launched, and (cuDNN
+   deterministic for the loop's runs) the resumed run bit for bit an
+   uninterrupted 8-step run's snapshot and metric log; then
+   ``cli.translate --member all`` on testA and one ``cli.gui`` render
+   (captured) from the step-8 snapshot. Prints the loop's img/s
    beside phase 6's, the snapshot's size and the seconds its save held the
    loop, and which decode path ran;
 9. eval (run after phase 5, beside phase 4's checkpoint):
@@ -119,6 +124,26 @@ Phases, in order; any failure raises and exits non-zero:
    with ``norm`` ``sn`` and ``bn`` at the headline width on the card
    against the CPU module: logits in f32 and bf16, ``u`` and the running
    statistics after a training-mode forward.
+14. graphs (``[graphs]``, run after phase 13): the port's compiled
+   executables (``councilx_torch/utils/graphs.py``), cuDNN deterministic,
+   every replay bit-equal to the eager call (:func:`phase_graphs`). The
+   flagship serving model's member 0 captured at every bucket of the
+   engine's ladder, all members and the float32 wire at bucket 8, the
+   GUI's two calls at one image (images and masks), and W8A8 per image
+   and static in both scopes at every bucket, each replay
+   on two inputs; bucket 8's eager and captured device calls side by side
+   (wall, enqueue and kernel ms, device ops and CUDA API launch calls per
+   call, device busy share: :func:`route_profile`) and host to host. The
+   headline step: 2 eager steps (one ``train_step``, then the compiled
+   step's eager warm-up call) and 10 replays of
+   ``CouncilTrainer.compile_step`` bit-equal to 12 eager steps in every
+   metric, parameter and Adam moment, the launches of its eager calls and
+   capture, its snapshot at step 6 restored into a new trainer and
+   compiled again bit-equal at step 12, both routes profiled, peak memory
+   and capture seconds; then ``GRAPH_TRAIN``: scheduled loss weights with
+   the council gate opening during the replays, ``every_kth`` with k = 2
+   (two graphs), ``remat_stages``; and ``vgg_w: 1`` (random VGG16
+   weights) for its peak memory under graphs.
 13. engines (``[engines]``, run after phase 7): the JAX generator's conv
    engines at full width (:func:`phase_engines`). Member 0 of the flagship
    model at bucket 8 under ``ENGINE_SERVE`` (the reference route, the JAX
@@ -1084,6 +1109,26 @@ def check_counts(got, forwards: int, where: str):
         raise AssertionError(f"{where}: kernel launches {got} != {want}")
 
 
+def engine_forwards(engine, batches: int) -> int:
+    """Member forwards through the kernel wrappers of an engine built with
+    warm-up and then ``batches`` batches, each of its members': on the
+    captured route one eager run and one capture per bucket at warm-up,
+    after which a batch replays and calls no wrapper; eagerly one run per
+    bucket at warm-up and one per batch."""
+    per = 2 * len(engine.buckets) if engine.graphs else \
+        len(engine.buckets) + batches
+    return per * engine.n_members
+
+
+def check_replays(engine, batches: int, where: str) -> None:
+    """On the captured route every batch, and each bucket's warm-up, is a
+    replay."""
+    want = len(engine.buckets) + batches if engine.graphs else 0
+    if engine.replays != want:
+        raise AssertionError(f"{where}: {engine.replays} replays, want "
+                             f"{want}")
+
+
 def submit_all(engine, images, seeds):
     """Submit one request per image from its own thread; return results."""
     futures = [None] * len(images)
@@ -1116,15 +1161,22 @@ def phase_serve(card_str: str, tmp: str):
     images = rng.integers(0, 256, (n_req, HW, HW, 3), dtype=np.uint8)
     seeds = [1000 + i for i in range(n_req)]
 
+    # counted from before the engine's warm-up: on the default captured
+    # route the buckets' captures hold the launches, the requests replay
+    reset_counts()
     engine = build_engine(cfg, ckpt, "0", "a2b", max_batch=BATCH,
                           max_delay_ms=200.0, warmup=True, device="cuda")
     try:
-        reset_counts()
+        if not engine.graphs:
+            raise AssertionError("build_engine on the card did not take "
+                                 "the captured route")
         outs = submit_all(engine, images, seeds)
         torch.cuda.synchronize()
         launches = counts()
         stats = engine.snapshot_stats()
-        check_counts(launches, stats["batches"], "member 0")
+        check_counts(launches, engine_forwards(engine, stats["batches"]),
+                     "member 0")
+        check_replays(engine, stats["batches"], "member 0")
         # bf16 roundings depend on the batch shape (library algorithm
         # choices, the norm kernels' split of HW), so the direct
         # reference runs at the engine's bucket: the requests must have
@@ -1178,15 +1230,17 @@ def phase_serve(card_str: str, tmp: str):
     finally:
         engine.stop()
 
+    reset_counts()
     engine = build_engine(cfg, ckpt, "all", "a2b", max_batch=BATCH,
                           max_delay_ms=200.0, warmup=True, device="cuda")
     try:
-        reset_counts()
         outs = submit_all(engine, images[:4], seeds[:4])
         torch.cuda.synchronize()
         ens_launches = counts()
         stats = engine.snapshot_stats()
-        check_counts(ens_launches, stats["batches"] * N_MEMBERS, "all")
+        check_counts(ens_launches, engine_forwards(engine, stats["batches"]),
+                     "all")
+        check_replays(engine, stats["batches"], "all")
         if stats["batch_size_histogram"] != {4: 1}:
             raise AssertionError(f"ensemble requests did not coalesce into "
                                  f"one bucket of 4: {stats}")
@@ -1407,7 +1461,8 @@ def quant_accuracy(ckpt: str, scope: str, mode: str, stats, card_str: str):
 def phase_quant(card_str: str, tmp: str, ckpt: str, none_tp: dict) -> dict:
     """Phase 10: W8A8 serving through the user's entry points, at full
     width, in both scopes and both serving modes. Returns the launch
-    counts summed over the engines' request runs (each counted from 0)."""
+    counts summed over the engines' runs (each counted from before its
+    engine's warm-up, which on the captured route holds the launches)."""
     import yaml
 
     from councilx_torch.ckpt.manager import load_params_npz
@@ -1439,20 +1494,23 @@ def phase_quant(card_str: str, tmp: str, ckpt: str, none_tp: dict) -> dict:
         for mode in ("w8a8", "w8a8_static"):
             cfg = load_config(cfg_path)
             cfg.quant = mode
+            reset_counts()
             engine = build_engine(
                 cfg, ckpt, "0", "a2b", max_batch=BATCH, max_delay_ms=200.0,
                 calibration=calib if mode == "w8a8_static" else None,
                 warmup=True, device="cuda")
             where = f"{mode} {scope}"
             try:
-                reset_counts()
                 outs = submit_all(engine, images, seeds)
                 torch.cuda.synchronize()
                 got = _snapshot()
                 st = engine.snapshot_stats()
                 if st["batch_size_histogram"] != {BATCH: n_req // BATCH}:
                     raise AssertionError(f"{where}: not full buckets {st}")
-                check_quant_counts(got, st["batches"], scope, mode, where)
+                check_quant_counts(got, engine_forwards(engine,
+                                                        st["batches"]),
+                                   scope, mode, where)
+                check_replays(engine, st["batches"], where)
                 for key, n in got.items():
                     total[key] = total.get(key, 0) + n
                 zs = np.stack([engine.make_z(sd) for sd in seeds])
@@ -1970,6 +2028,10 @@ def phase_train_cli(card_str: str, tmp: str, step_ips: float) -> dict:
         f"({step_ips:.6g} img/s) [{card_str}]")
     out = os.path.join(tmp, "runs")
     args = ["--config", cfg_path, "--output_path", out]
+    # cuDNN deterministic for the loop's runs: the resumed run is held bit
+    # for bit against an uninterrupted one (below)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
     reset_counts()
     t0 = time.perf_counter()
     first = train_cli.main(args + ["--max_steps", str(CLI_STEPS)])
@@ -2022,8 +2084,16 @@ def phase_train_cli(card_str: str, tmp: str, step_ips: float) -> dict:
 
     # launch invariants over the loop's steps: every step's kernel sites
     # ran under autograd with their backward; the rest are the sample
-    # sheets' member forwards (no grad)
-    steps = end * N_MEMBERS
+    # sheets' member forwards (no grad). On the captured route a run's
+    # first step is eager and its second is captured (and replayed); the
+    # later ones replay and call no wrapper
+    if not (first["graphs"] and resumed["graphs"]):
+        raise AssertionError("the train CLI on the card did not take the "
+                             "captured route")
+    log(f"[train-cli] captured step: capture s {first['capture_seconds']} "
+        f"and {resumed['capture_seconds']} (resumed) [{card_str}]")
+    steps = sum(min(n, 2) for n in (CLI_STEPS, CLI_RESUME_STEPS)) * \
+        N_MEMBERS
     conv = TRAIN_CONV_PER_MEMBER * steps
     norm = TRAIN_NORM_PER_MEMBER * steps
     adain = TRAIN_ADAIN_PER_MEMBER * steps
@@ -2048,6 +2118,37 @@ def phase_train_cli(card_str: str, tmp: str, step_ips: float) -> dict:
         f"{fwd} sample-sheet member forwards {json.dumps(got)}")
     if got != want:
         raise AssertionError(f"train-cli launches {got} != {want}")
+
+    # bitwise resume on the captured loop: the same 8 steps in one run
+    whole = os.path.join(tmp, "runs_whole")
+    t0 = time.perf_counter()
+    try:
+        train_cli.main(["--config", cfg_path, "--output_path", whole,
+                        "--max_steps", str(end)])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    from councilx_torch.ckpt.manager import restore_checkpoint
+
+    pairs = [restore_checkpoint(os.path.join(o, "headline", "checkpoints"))
+             for o in (out, whole)]
+    diff = payload_diff(pairs[0][0], pairs[1][0])
+    logs = [{k: {m: v for m, v in r.items()
+                 if m not in ("time", "images_per_sec")}
+             for k, r in _metric_steps(os.path.join(
+                 o, "headline", "metrics.jsonl")).items()}
+            for o in (out, whole)]
+    if diff or not pairs[0][1] == pairs[1][1] == end or logs[0] != logs[1]:
+        raise AssertionError(f"train-cli: {CLI_STEPS} + {CLI_RESUME_STEPS} "
+                             f"resumed steps differ from {end} in one run: "
+                             f"state at {diff[:6]}, logs equal "
+                             f"{logs[0] == logs[1]}")
+    del pairs
+    log(f"[train-cli] bitwise resume on the captured loop: {CLI_STEPS} + "
+        f"{CLI_RESUME_STEPS} resumed steps equal {end} steps in one run "
+        f"(every parameter, Adam moment and count, the step, the z "
+        f"generator, every logged metric; cuDNN deterministic), the "
+        f"uninterrupted run {time.perf_counter() - t0:.6g} s with the "
+        f"comparison [{card_str}]")
 
     snap = os.path.join(run, "checkpoints", f"step_{end:08d}")
     trans_out = os.path.join(tmp, "translated")
@@ -2437,6 +2538,7 @@ def multi_serve(card_str: str) -> list:
             ips = engine_ips(engine, x, reps=2 if all_members else 8)
         finally:
             engine.stop()
+        name += " (captured)" if engine.graphs else " (eager)"
         images = ips * (N_MEMBERS if all_members else 1)
         out.append((name, ips, images))
         log(f"[multi-gpu] {name}: engine at bucket {BATCH}: {ips:.6g} "
@@ -2852,6 +2954,336 @@ def export_check(card_str: str, tmp: str) -> None:
         f"{BATCH} [{card_str}]")
 
 
+# [graphs]: the serving buckets and the train step as captured CUDA graphs
+# (councilx_torch/utils/graphs.py), every replay held bit-equal to the
+# eager call. The quantized serving settings; the headline step's eager
+# warm-up calls and replays; the calls profiled per route; the train
+# settings held step for step beside it: (name, overrides, steps), each
+# with one eager warm-up call per step shape.
+GRAPH_QUANT = (("w8a8", "resblocks"), ("w8a8_static", "resblocks"),
+               ("w8a8", "heavy"), ("w8a8_static", "heavy"))
+GRAPH_WARM, GRAPH_REPLAYS = 2, 10
+GRAPH_PROFILED = 2
+GRAPH_TRAIN = (
+    # the council gate opens at step 3 (a replay), the council weight
+    # ramps over steps 3-4, recon_x_w and mask_total_w anneal throughout
+    ("scheduled", {
+        "recon_x_w": {"base": 10.0, "anneal": "linear",
+                      "anneal_start_iter": 0, "anneal_iters": 5,
+                      "end_value": 2.0},
+        "council": {"council_size": 4, "council_start_at_iter": 3,
+                    "council_w": {"base": 0.2, "start_at_iter": 3,
+                                  "warmup_iters": 2}},
+        "focus_loss": {"focus_enabled": True, "focus_start_at_iter": 2,
+                       "mask_total_w": {"base": 0.005, "anneal": "cosine",
+                                        "anneal_start_iter": 1,
+                                        "anneal_iters": 4,
+                                        "end_value": 0.001}}}, 5),
+    # two graphs: steps 0 and 1 eager, 2 and 3 captured, 4 and 5 replayed
+    ("every_kth", {"council": {"council_size": 4, "council_w": 0.2,
+                               "council_dis_relative_iteration": 2,
+                               "cdis_ratio_mode": "every_kth"}}, 6),
+    ("remat_stages", {"remat_stages": True}, 4),
+)
+# vgg_w: 1's calls: the warm-up, the capture, one more replay
+GRAPH_VGG_STEPS = 3
+
+
+def union_us(spans) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def route_profile(fn, calls: int) -> dict:
+    """Per call of ``fn`` (after one warm call): wall ms (host clock around
+    ``calls`` calls and a synchronize), host enqueue ms (median of one
+    call, no synchronize), and from a torch.profiler trace of ``calls``
+    more: kernel ms (the sum of the trace's CUDA events' durations:
+    kernels, copies, sets) and device ops, CUDA API launch calls (the
+    trace's runtime and driver launches: kernels, cooperative kernels,
+    graphs), and the device's busy share: the time at least one device
+    op runs (the union of their intervals) over the wall time. The trace
+    is taken again, up to twice, if it holds no device event."""
+    fn()
+    torch.cuda.synchronize()
+    enqueue = []
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        e0 = time.perf_counter()
+        fn()
+        enqueue.append(time.perf_counter() - e0)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0) / calls
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        spans, api = [], 0
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                spans.append((e.time_range.start, e.time_range.end))
+            elif e.name.startswith("cu") and "Launch" in e.name:
+                api += 1
+        if spans:
+            kernel = sum(b - a for a, b in spans) / 1e3 / calls
+            return {"wall_ms": wall,
+                    "enqueue_ms": 1e3 * float(np.median(enqueue)),
+                    "kernel_ms": kernel, "device_ops": len(spans) / calls,
+                    "api_launches": api / calls,
+                    "busy": union_us(spans) / 1e3 / calls / wall}
+    raise AssertionError("the profiler recorded no device event")
+
+
+def log_route(tag: str, what: str, r: dict, card_str: str) -> None:
+    log(f"[graphs] {tag} {what}: wall {r['wall_ms']:.6g} ms, enqueue "
+        f"{r['enqueue_ms']:.6g} ms, kernels {r['kernel_ms']:.6g} ms, "
+        f"{r['device_ops']:.6g} device ops and {r['api_launches']:.6g} "
+        f"CUDA API launch calls per call, device busy (some op running) "
+        f"{100 * r['busy']:.4g}% of the wall [{card_str}]")
+
+
+def _hold_captured(tr: Translator, method: str, params, bucket: int,
+                   rng, where: str) -> float:
+    """Capture ``method`` at ``bucket`` and hold two replays, on fresh
+    inputs, bit-equal to the eager calls (every output: the GUI's methods
+    give images and masks) -> the capture's seconds."""
+    call = tr.captured(method, params, bucket, (HW, HW))
+    zshape = (bucket, tr.cfg.gen.style_dim)
+    if method == "translate_all_members":
+        zshape = (len(params),) + zshape
+    for _ in range(2):
+        if "u8io" in method:
+            x = rng.integers(0, 256, (bucket, HW, HW, 3), dtype=np.uint8)
+        else:
+            x = rng.uniform(-1, 1, (bucket, HW, HW, 3)).astype(np.float32)
+        z = rng.standard_normal(zshape).astype(np.float32)
+        got = call(torch.from_numpy(x), torch.from_numpy(z))
+        want = getattr(tr, method)(params, x, z)
+        got, want = ((got, want) if isinstance(got, tuple)
+                     else ((got,), (want,)))
+        if not all(torch.equal(a.cpu(), b.cpu())
+                   for a, b in zip(got, want)):
+            raise AssertionError(f"[graphs] {where} bucket {bucket}: the "
+                                 f"replay differs from the eager call")
+    return call.capture_seconds
+
+
+def graphs_serve(card_str: str) -> None:
+    """The flagship serving model: member 0 at every bucket of the
+    engine's ladder, all members and the float32 wire at bucket 8, and
+    each W8A8 setting of GRAPH_QUANT at every bucket, captured and held
+    bit-equal to eager; bucket 8 profiled on both routes."""
+    from councilx_torch.inference.server import _bucket_ladder
+    from councilx_torch.tools import calibrate_quant
+
+    cfg = Config.from_dict(FLAGSHIP)
+    buckets = _bucket_ladder(BATCH)
+    rng = np.random.default_rng(15)
+    tr = Translator(cfg, device="cuda")
+    gens = tr.init_members(N_MEMBERS, seed=0)
+    t0 = time.perf_counter()
+    caps = {b: _hold_captured(tr, "translate_u8io_device", gens[0], b, rng,
+                              "member 0") for b in buckets}
+    log(f"[graphs] serve member 0: buckets {buckets} each captured (one "
+        f"eager warm-up run, then the capture) and replayed bit-equal to "
+        f"eager on two inputs in {time.perf_counter() - t0:.6g} s; "
+        f"capture s per bucket {json.dumps(caps)} [{card_str}]")
+    cap_all = _hold_captured(tr, "translate_all_u8io_device", gens, BATCH,
+                             rng, "all members")
+    cap_f32 = _hold_captured(tr, "translate_u8_device", gens[0], BATCH, rng,
+                             "float32 wire")
+    log(f"[graphs] serve all {N_MEMBERS} members and the float32 wire at "
+        f"bucket {BATCH}: bit-equal; capture {cap_all:.6g} s and "
+        f"{cap_f32:.6g} s [{card_str}]")
+    caps = [_hold_captured(tr, method, params, 1, rng, f"gui {method}")
+            for method, params in (("translate", gens[1]),
+                                   ("translate_all_members", gens))]
+    log(f"[graphs] gui renders (one image; images and masks): member 1 and "
+        f"all members bit-equal; capture s {caps[0]:.6g} and {caps[1]:.6g} "
+        f"[{card_str}]")
+    x8 = torch.from_numpy(rng.integers(0, 256, (BATCH, HW, HW, 3),
+                                       dtype=np.uint8)).cuda()
+    z8 = torch.randn(BATCH, cfg.gen.style_dim).cuda()
+    call = tr.captured("translate_u8io_device", gens[0], BATCH, (HW, HW))
+    eager = route_profile(lambda: tr.translate_u8io_device(gens[0], x8,
+                                                           z=z8), 5)
+    graph = route_profile(lambda: call(x8, z8).clone(), 5)
+    log_route("serve", f"bucket {BATCH} member 0 eager", eager, card_str)
+    log_route("serve", f"bucket {BATCH} member 0 graph (copy in, replay, "
+              "copy out)", graph, card_str)
+    xh, zh = x8.cpu().numpy(), z8.cpu().numpy()
+    host = {"eager": lambda: tr.translate_u8io_device(
+        gens[0], xh, z=zh).cpu(),
+        "graph": lambda: call(torch.from_numpy(xh),
+                              torch.from_numpy(zh)).clone().cpu()}
+    hw = {k: float(np.median(median_ms(f, reps=10))) for k, f in host.items()}
+    log(f"[graphs] serve bucket {BATCH} host to host (pinned upload, "
+        f"readback): eager {hw['eager']:.6g} ms, graph {hw['graph']:.6g} "
+        f"ms per batch [{card_str}]")
+    sd = gens[0].state_dict()
+    del tr, gens, call
+    torch.cuda.empty_cache()
+    for mode, scope in GRAPH_QUANT:
+        raw = {**FLAGSHIP, "quant_scope": scope}
+        stats = None
+        if mode == "w8a8_static":
+            cal = Translator(Config.from_dict(raw), device="cuda")
+            gen = cal.make_gen(quant="w8a8_calib")
+            gen.load_state_dict(sd)
+            qcfg = Config.from_dict(raw)
+            stats = port_quant_stats_to_tree(calibrate_quant.calibrate(
+                cal, gen, calibrate_quant.calibration_batches(
+                    qcfg, None, BATCH, 2, 0), 2, 0), qcfg)
+        tq = Translator(Config.from_dict({**raw, "quant": mode}),
+                        quant_stats=stats, device="cuda")
+        gq = tq.load_members([sd])[0]
+        caps = {b: _hold_captured(tq, "translate_u8io_device", gq, b, rng,
+                                  f"{mode} {scope}") for b in buckets}
+        log(f"[graphs] serve {mode} {scope}: buckets {buckets} bit-equal; "
+            f"capture s per bucket {json.dumps(caps)} [{card_str}]")
+        del tq, gq
+        torch.cuda.empty_cache()
+
+
+def _steps(step_fn, state, x_a, x_b, n: int, snap_at=None):
+    """``n`` calls of ``step_fn`` -> (state, metrics per step as floats,
+    the state's snapshot after call ``snap_at``)."""
+    metrics, snap = [], None
+    for i in range(n):
+        state, m = step_fn(state, x_a, x_b)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if snap_at == i + 1:
+            snap = state.snapshot()
+    return state, metrics, snap
+
+
+def _same_steps(name: str, over: dict, steps: int, warm: int, sds, x_a,
+                x_b, card_str: str, resume_at=None) -> dict:
+    """``steps`` eager steps, and from the same weights and z seed ``warm``
+    - 1 eager steps then the compiled step (each step shape's first call
+    eager) to ``steps``: every metric, parameter and Adam moment
+    bit-equal. With ``resume_at``: the compiled run's snapshot at that step
+    restored into a new trainer, compiled again and run to the end,
+    bit-equal too."""
+    cfg = Config.from_dict({**HEADLINE, **over})
+    eager = CouncilTrainer(cfg, device="cuda")
+    ref = eager.load_state(sds, seed=5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ref, want, _ = _steps(eager.train_step, ref, x_a, x_b, steps)
+    torch.cuda.synchronize()
+    out = {"eager_s": time.perf_counter() - t0,
+           "eager_peak": torch.cuda.max_memory_allocated()}
+    comp = CouncilTrainer(cfg, device="cuda")
+    state = comp.load_state(sds, seed=5)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, got, _ = _steps(comp.train_step, state, x_a, x_b, warm - 1)
+    step = comp.compile_step(state)
+    state, more, snap = _steps(step, state, x_a, x_b, steps - warm + 1,
+                               None if resume_at is None
+                               else resume_at - warm + 1)
+    got += more
+    torch.cuda.synchronize()
+    out.update(graph_s=time.perf_counter() - t0,
+               graph_peak=torch.cuda.max_memory_allocated(),
+               launches=_snapshot(),
+               captures={str(k[2]): round(v, 6) for k, v in
+                         step.capture_seconds.items()},
+               replays=sum(c.replays for c, _ in step.calls.values()))
+    if got != want:
+        bad = [(i, k) for i, (g, w) in enumerate(zip(got, want))
+               for k in w if g.get(k) != w[k]]
+        raise AssertionError(f"[graphs] {name}: metrics differ at {bad[:6]}")
+    diff = payload_diff(state.snapshot(), ref.snapshot())
+    if diff:
+        raise AssertionError(f"[graphs] {name}: state differs at {diff[:6]}")
+    if resume_at is not None:
+        final = state.snapshot()
+        out["profile"] = route_profile(
+            lambda: step(state, x_a, x_b), GRAPH_PROFILED)
+        out["eager_profile"] = route_profile(
+            lambda: eager.train_step(ref, x_a, x_b), GRAPH_PROFILED)
+        del step, state, ref
+        torch.cuda.empty_cache()
+        back = CouncilTrainer(cfg, device="cuda")
+        s2 = back.restore_state(snap)
+        s2, _, _ = _steps(back.compile_step(s2), s2, x_a, x_b,
+                          steps - resume_at)
+        diff = payload_diff(s2.snapshot(), final)
+        if diff:
+            raise AssertionError(f"[graphs] {name}: resumed at {resume_at} "
+                                 f"and compiled again, the state differs "
+                                 f"at {diff[:6]}")
+    resumed = ("" if resume_at is None else
+               f"; its snapshot at step {resume_at} restored into a new "
+               f"trainer and compiled again: bit-equal at step {steps}")
+    log(f"[graphs] {name}: {warm - 1} eager step(s), then the compiled "
+        f"step (its first call per step shape eager; captures s "
+        f"{json.dumps(out['captures'])}, {out['replays']} replays) to step "
+        f"{steps}: bit-equal to {steps} eager steps in every metric, "
+        f"parameter and Adam moment{resumed}; {out['eager_s']:.6g} s "
+        f"eager, {out['graph_s']:.6g} s compiled (captures included); peak "
+        f"memory eager {out['eager_peak'] / 2 ** 30:.6g} GiB, compiled "
+        f"{out['graph_peak'] / 2 ** 30:.6g} GiB [{card_str}]")
+    torch.cuda.empty_cache()
+    return out
+
+
+def graphs_train(card_str: str) -> None:
+    """The headline step: GRAPH_WARM eager steps (the last the compiled
+    step's warm-up call) and GRAPH_REPLAYS replays bit-equal to as many
+    eager steps, the launches of the eager steps and the capture, a resume
+    from its snapshot; both routes profiled; then each of GRAPH_TRAIN."""
+    x_a, x_b = headline_batch("cuda")
+    sds = CouncilTrainer(Config.from_dict(HEADLINE), device="cpu"
+                         ).init_state(seed=0).state_dicts()
+    steps = GRAPH_WARM + GRAPH_REPLAYS
+    head = _same_steps("headline", {}, steps, GRAPH_WARM, sds, x_a, x_b,
+                       card_str, resume_at=steps // 2)
+    # the wrappers launch in the eager calls and record into the capture;
+    # a replay calls no wrapper
+    check_train_launches(head["launches"], GRAPH_WARM + 1, "[graphs]")
+    if head["replays"] != GRAPH_REPLAYS:
+        raise AssertionError(f"[graphs] {head['replays']} replays")
+    log_route("train", "headline step eager", head["eager_profile"],
+              card_str)
+    log_route("train", "headline step graph", head["profile"], card_str)
+    for name, over, n in GRAPH_TRAIN:
+        _same_steps(name, over, n, 1, sds, x_a, x_b, card_str)
+    # the heaviest step's peak under graphs: the f32 VGG16 loss
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        vgg = write_random_vgg(os.path.join(tmp, "vgg16_random.npz"))
+        _same_steps("vgg_w", {"vgg_w": 1.0, "vgg_model_path": vgg},
+                    GRAPH_VGG_STEPS, 1, sds, x_a, x_b, card_str)
+
+
+def phase_graphs(card_str: str) -> None:
+    """The [graphs] phase (module docstring, 14.), cuDNN deterministic for
+    its bit-equality checks (the discriminators' convs)."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    try:
+        graphs_serve(card_str)
+        graphs_train(card_str)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    log(f"[graphs] phase {time.perf_counter() - t0:.6g} s")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -2880,6 +3312,7 @@ def main():
     launches, step_ips = phase_train(card_str)
     phase_train_accuracy(card_str)
     engines = phase_engines(card_str)
+    phase_graphs(card_str)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
         cli_launches = phase_train_cli(card_str, tmp, step_ips)
         phase_complete(card_str, tmp)

@@ -12,7 +12,9 @@ codes live; it shows the translations and, for focus models, the masks.
 code of a render comes from a ``torch.Generator`` seeded with the page's
 seed. Endpoints: ``GET /``, ``/meta``, ``/translate?image=&member=&seed=``
 (JSON panel list) and ``/img?key=`` (PNG). SIGTERM drains: the server stops
-taking requests and the ones in flight finish.
+taking requests and the ones in flight finish. On a card each render
+replays a CUDA graph captured when the server is made (one per member and
+one for all, at one image: ``Translator.captured``).
 """
 
 import argparse
@@ -101,6 +103,20 @@ def make_server(cfg, checkpoint: str, input_folder: str, port: int = 8765,
         raise SystemExit(f"no images under {input_folder}")
     lock = threading.Lock()
     size = cfg.data.crop_image_height
+    style_dim = cfg.gen.style_dim
+    # on the card each render replays a captured graph (one image), all
+    # captured here; the lock keeps one replay and its readback at a time
+    graphs = translator.device.type == "cuda"
+
+    def translate(method: str, params, x, z):
+        if graphs:
+            return translator.captured(method, params, 1, (size, size))(x, z)
+        return getattr(translator, method)(params, x, z)
+
+    if graphs:
+        translator.captured("translate_all_members", gens, 1, (size, size))
+        for g in gens:
+            translator.captured("translate", g, 1, (size, size))
 
     def render(image_rel: str, member: str, seed: str):
         arr = _load_resize_crop(os.path.join(input_folder, image_rel),
@@ -108,15 +124,18 @@ def make_server(cfg, checkpoint: str, input_folder: str, port: int = 8765,
         x = normalize_batch(torch.from_numpy(arr[None]))
         rng = torch.Generator().manual_seed(int(seed))
         with lock:
+            # the draws the methods would make from rng
             if member == "all":
-                out, mask = translator.translate_all_members(gens, x,
-                                                             rng=rng)
+                out, mask = translate(
+                    "translate_all_members", gens, x,
+                    torch.randn((len(gens), 1, style_dim), generator=rng))
                 outs = [out[i, 0].cpu().numpy() for i in range(len(gens))]
                 masks = ([mask[i, 0].cpu().numpy() for i in range(len(gens))]
                          if mask is not None else None)
             else:
-                out, mask = translator.translate(gens, x, rng=rng,
-                                                 member=int(member))
+                out, mask = translate(
+                    "translate", gens[int(member)], x,
+                    torch.randn((1, style_dim), generator=rng))
                 outs = [out[0].cpu().numpy()]
                 masks = ([mask[0].cpu().numpy()] if mask is not None
                          else None)

@@ -6,9 +6,20 @@ serving-scale counterpart of the reference's one-image-at-a-time
 
 * **Batch buckets.** Requests are coalesced and padded up to the next
   bucket of a power-of-two ladder (1, 2, 4, ... max_batch), so the device
-  only ever sees a few batch shapes; :meth:`BatchingEngine.warmup` runs each
-  once at startup (kernel builds, library autotuning) so no request pays
-  for it.
+  only ever sees a few batch shapes; :meth:`BatchingEngine.warmup` builds
+  each at startup so no request pays for it.
+* **Captured buckets.** On a card (one-device translators) each
+  bucket's device call is a CUDA graph
+  (``Translator.captured``), the counterpart of the JAX engine's one
+  executable per bucket: warm-up captures every bucket, and a batch is
+  copied into its bucket's static input and replayed. A replay overwrites
+  its output while the readback thread may still be reading the previous
+  batch's, so each replay's output is copied out (one device-to-device
+  copy of the batch's uint8 result, ordered after the replay on the
+  dispatch stream) rather than served from a second graph per bucket,
+  which would hold a second pool of activations. Sharded translators
+  (their per-device threads) and CPU translators run eagerly
+  (``BatchingEngine.graphs``).
 * **Deadline-based coalescing.** The worker takes the first queued request,
   then drains the queue until either ``max_batch`` requests are in hand or
   ``max_delay_ms`` has elapsed since the first arrival — the standard
@@ -40,7 +51,6 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
-
 
 def _set_result(future: Future, value) -> None:
     """Resolve a future, tolerating a concurrent client cancel(): done()
@@ -155,6 +165,17 @@ class BatchingEngine:
                              "members: build the engine with "
                              "all_members=True (or use ShardedTranslator "
                              "for one member over several devices)")
+        # the route, by what the translator is: each bucket captured on a
+        # one-device CUDA translator; eager on the CPU and for the sharded
+        # translators, which launch from one host thread per device
+        self.graphs = translator.device.type == "cuda" and not axes
+        self.replays = 0        # captured calls replayed (graphs)
+        if all_members:
+            self._method = ("translate_all_u8io_device" if wire_format == "u8"
+                            else "translate_all_u8_device")
+        else:
+            self._method = ("translate_u8io_device" if wire_format == "u8"
+                            else "translate_u8_device")
         self.n_members = len(params) if all_members else 1
         self.translator = translator
         self.style_dim = translator.cfg.gen.style_dim
@@ -180,6 +201,7 @@ class BatchingEngine:
         # flag-flip+drain, so no request can slip into the queue after the
         # drain and strand its future
         self._lifecycle_lock = threading.Lock()
+        self._graph_lock = threading.Lock()
         self._q: "queue.Queue[Optional[_Request]]" = queue.Queue()
         self._ready: "queue.Queue" = queue.Queue(maxsize=2)
         self._dispatcher: Optional[threading.Thread] = None
@@ -229,13 +251,21 @@ class BatchingEngine:
             return self.stats.snapshot()
 
     def warmup(self, buckets: Optional[Sequence[int]] = None):
-        """Run every bucket once before taking traffic, so kernel builds and
-        the first launches at each shape never land on a live request."""
+        """Build every bucket before taking traffic, so kernel builds, the
+        first launches at each shape and the captures never land on a live
+        request: with graphs, capture each bucket and replay it once;
+        eagerly, run it once."""
         h, w = self.image_hw
         for b in buckets if buckets is not None else self.buckets:
             x = np.zeros((b, h, w, 3), self._wire_dtype)
             z = np.zeros((b, self.style_dim), np.float32)
             self._device_call(x, z).cpu()
+
+    def captured(self, bucket: int):
+        """The bucket's captured device call (``Translator.captured``),
+        captured at first use."""
+        return self.translator.captured(self._method, self.params, bucket,
+                                         self.image_hw)
 
     # -- request path -------------------------------------------------------
 
@@ -356,6 +386,16 @@ class BatchingEngine:
             _set_exception(r.future, e)
 
     def _device_call(self, x: np.ndarray, z: np.ndarray):
+        if self.graphs:
+            # one capture or replay at a time (warmup() on the caller's
+            # thread may meet a batch on the dispatch thread): the buckets
+            # share one memory pool and a bucket its static inputs. The
+            # output is copied out: the next replay overwrites it while
+            # this batch may still be read back
+            with self._graph_lock:
+                self.replays += 1
+                return self.captured(x.shape[0])(
+                    torch.from_numpy(x), torch.from_numpy(z)).clone()
         if self.all_members:
             if self.wire_format == "u8":
                 return self.translator.translate_all_u8io_device(

@@ -1,9 +1,12 @@
 """Batched translation (reference test_on_folder.py, SURVEY.md §3.4).
 
-Counterpart of ``councilx/inference/translate.py::Translator``. PyTorch runs
-eagerly, so the JAX package's jitted functions become plain methods under
+Counterpart of ``councilx/inference/translate.py::Translator``. The JAX
+package's jitted functions become plain methods under
 ``torch.inference_mode()``, and its vmapped member axis becomes a loop over
-the members' ``AdaINGen`` modules.
+the members' ``AdaINGen`` modules. On a card, :meth:`Translator.captured`
+captures the serving methods (``CAPTURED``) as CUDA graphs, one per
+(method, members, batch, image size) -- the counterpart of their jitted
+executables -- which the serving engine replays (``utils/graphs.py``).
 
 ``params`` is one member's ``AdaINGen`` or a sequence of them (the
 council); ``member=i`` picks one out of a sequence. Build them with
@@ -44,8 +47,17 @@ from councilx_torch.config import Config
 from councilx_torch.nn.blocks import init_parameters
 from councilx_torch.nn.generator import (AdaINGen, composite_with_mask,
                                          engine_kwargs)
+from councilx_torch.utils.graphs import CaptureContext, CapturedCall
 
 Members = Union[AdaINGen, Sequence[AdaINGen]]
+
+# the methods a Translator captures, each called (members, x, z): the
+# engine's -> uint8 on the device, with uint8 ("u8io") or float32 [-1, 1]
+# input, one member or all under one z; the GUI's -> (float32 images,
+# masks | None), one member, or all with a z each (z (N, B, style_dim))
+CAPTURED = ("translate_u8io_device", "translate_u8_device",
+            "translate_all_u8io_device", "translate_all_u8_device",
+            "translate", "translate_all_members")
 
 
 def _u8_from_unit(out: torch.Tensor) -> torch.Tensor:
@@ -92,6 +104,9 @@ class Translator:
         if quant_stats is not None and self.quant == "w8a8_static":
             self.quant_stats = quant_stats_to_port(quant_stats, cfg)
             self._validate_quant_stats()
+        # captured serving calls (captured()), and their stream and pool
+        self._captured = {}
+        self._capture_ctx = None
 
     def _validate_quant_stats(self) -> None:
         """Fail by name when the calibration does not cover quant_scope:
@@ -141,7 +156,9 @@ class Translator:
 
     def load_members(self, state_dicts: Sequence[Mapping[str, torch.Tensor]]
                      ) -> List[AdaINGen]:
-        """One AdaINGen per MUNIT-layout state dict (strict load)."""
+        """One AdaINGen per MUNIT-layout state dict (strict load). Drops
+        the captured calls of earlier members."""
+        self._captured.clear()
         gens = []
         for sd in state_dicts:
             gen = self.make_gen()
@@ -151,7 +168,9 @@ class Translator:
 
     def init_members(self, n: int, seed: int) -> List[AdaINGen]:
         """n members with random weights (``cfg.init``) drawn in order
-        from one ``torch.Generator`` seeded with ``seed``."""
+        from one ``torch.Generator`` seeded with ``seed``. Drops the
+        captured calls of earlier members."""
+        self._captured.clear()
         rng = torch.Generator().manual_seed(seed)
         gens = []
         for _ in range(n):
@@ -159,6 +178,57 @@ class Translator:
             init_parameters(gen, self.cfg.init, rng)
             gens.append(self._take(gen))
         return gens
+
+    # -- captured calls -----------------------------------------------------
+
+    def captured(self, method: str, params: Members, batch: int,
+                 hw: Tuple[int, int]) -> CapturedCall:
+        """``method`` (one of ``CAPTURED``) of ``params`` at ``batch`` rows
+        of ``hw`` images, as a CUDA graph over static ``x`` and ``z``
+        inputs: call it with host or device ``(x, z)`` of those shapes
+        (``x`` uint8 for the u8io methods, else float32; ``z`` (batch,
+        style_dim) float32, (N, batch, style_dim) for
+        ``translate_all_members``) -> the graph's output, which the next
+        replay overwrites. Built at first use -- one eager run on the
+        capture's side stream, then the capture -- and kept, keyed by
+        (method, members, batch, hw, dtype, quant mode and scope), until
+        new members are loaded. The calls of one translator share one
+        memory pool: replay them from one thread at a time. A graph reads
+        the members' derived and int8 weights as its warm-up cached them
+        (``nn/blocks.py``), so new weights come through
+        :meth:`load_members`, which drops the calls, never in place."""
+        if method not in CAPTURED:
+            raise ValueError(f"captured: {method!r} is not one of "
+                             f"{CAPTURED}")
+        members = tuple(params) if isinstance(params, (list, tuple)) \
+            else (params,)
+        key = (method, tuple(id(g) for g in members), batch, tuple(hw),
+               self.dtype, self.quant, self.cfg.quant_scope)
+        hit = self._captured.get(key)
+        if hit is not None:
+            return hit[1]
+        if self._capture_ctx is None:
+            self._capture_ctx = CaptureContext(self.device,
+                                               "Translator.captured")
+        ctx = self._capture_ctx
+        h, w = hw
+        x = torch.zeros((batch, h, w, 3), device=ctx.device,
+                        dtype=torch.uint8 if "u8io" in method
+                        else torch.float32)
+        z = torch.zeros((len(members),) * (method == "translate_all_members")
+                        + (batch, self.cfg.gen.style_dim), device=ctx.device)
+        fn = getattr(self, method)
+
+        def call(x, z):
+            return fn(params, x, z)
+
+        ctx.run(call, x, z)
+        # the members stay referenced beside their call: the key holds
+        # their ids
+        self._captured[key] = (params, ctx.capture(
+            call, [x, z], f"{method} of {len(members)} member(s) at batch "
+            f"{batch} x {h}x{w}"))
+        return self._captured[key][1]
 
     # -- helpers ------------------------------------------------------------
 

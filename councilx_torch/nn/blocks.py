@@ -218,13 +218,13 @@ def make_activation(name: str
 # ---------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def _pad_index(n: int, p: int, pad_type: str,
                device: torch.device) -> torch.Tensor:
     """Source index of each padded row (column). Cached: building it takes
     six small launches, which on the card cost more than the pad itself.
     Built outside inference mode, so that autograd may save it; never
-    written."""
+    written, and never evicted: a captured graph reads it."""
     if pad_type == "reflect" and p >= n:
         raise ValueError(f"reflect pad {p} needs a dimension > {p}, got {n}")
     with torch.inference_mode(False):

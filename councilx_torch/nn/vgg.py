@@ -25,6 +25,7 @@ kernel site: the JAX package runs these convs as XLA convs, so
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
@@ -62,7 +63,17 @@ def vgg_preprocess(x: torch.Tensor) -> torch.Tensor:
     every operation in x's dtype (reference utils.py::vgg_preprocess)."""
     x = (x + 1.0) * 127.5
     x = x.flip(-1)
-    return x - torch.tensor(_BGR_MEANS, dtype=x.dtype, device=x.device)
+    return x - _bgr_means(x.dtype, x.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _bgr_means(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The caffe means as a (3,) tensor in ``dtype`` on ``device``, made
+    once: a host-to-device copy inside a captured train step
+    (``utils/graphs.py``) would fail the capture. Never written, and never
+    evicted: a captured graph reads it."""
+    with torch.inference_mode(False):
+        return torch.tensor(_BGR_MEANS, dtype=dtype, device=device)
 
 
 class Vgg16Features(nn.Module):

@@ -53,7 +53,9 @@ _WGRAD_F32_TILE = (64, 64, 16)
 _WGRAD_F32_BLOCKS = 528      # 4 per SM of an H100
 _H100_SMS = 132
 # per (device index, stream): the bf16 wgrad kernel's int32 ticket counter
-# of each tile, zero between launches (the kernel resets the ones it uses)
+# of each tile, zero between launches (the kernel resets the ones it uses).
+# Never dropped: a captured train step (utils/graphs.py) replays with the
+# buffer of its capture stream, made by its eager warm-up on that stream
 _wgrad_counters: Dict[Tuple[int, int], torch.Tensor] = {}
 
 

@@ -152,6 +152,10 @@ class DataParallelTrainer(CouncilTrainer):
     takes it) sliced to this rank's rows."""
 
     axes = ("data",)
+    # the step's hooks run NCCL collectives, which are not captured
+    # (CouncilTrainer.compile_step): this trainer, and the shard trainer
+    # below, train eagerly
+    capturable = False
     wrong_grid = ("DataParallelTrainer takes a 1-D ('data',) grid; for a "
                   "('data','council') grid use councilx_torch.parallel."
                   "council_shard.CouncilShardTrainer")

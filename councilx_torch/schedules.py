@@ -19,8 +19,11 @@ Semantics (piecewise in the training step):
     over ``anneal_iters`` (linear or half-cosine), or decays by
     ``anneal_gamma`` every ``anneal_step_size`` iters (step).
 
-PyTorch runs eagerly, so :meth:`WeightSchedule.value` is a plain float
-evaluated on the host.
+:meth:`WeightSchedule.value` takes the step as a Python int (a float
+evaluated on the host) or as a 0-d tensor: then it is evaluated on the
+tensor's device in float32, as the JAX package evaluates it on the traced
+step, so that a captured train step (``train/trainer.py``) reads the step
+it replays, not the one it was captured at.
 """
 
 from __future__ import annotations
@@ -28,7 +31,9 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Union
+
+import torch
 
 _ANNEALS = ("none", "linear", "cosine", "step")
 
@@ -67,10 +72,15 @@ class WeightSchedule:
         return (self.start_at_iter == 0 and self.warmup_iters == 0
                 and self.anneal == "none")
 
-    def value(self, step: int) -> float:
-        """Weight at ``step``."""
+    def value(self, step: Union[int, torch.Tensor]
+              ) -> Union[float, torch.Tensor]:
+        """Weight at ``step``: a float for an int step; a 0-d float32
+        tensor on the step's device for a 0-d tensor step. Constant weights
+        stay the float ``base``, as in the JAX package."""
         if self.is_constant:
             return self.base
+        if isinstance(step, torch.Tensor):
+            return self._value_f32(step)
         s = float(step)
 
         # plateau value after annealing
@@ -90,6 +100,31 @@ class WeightSchedule:
             ramp = _clip01((s - self.start_at_iter) / self.warmup_iters)
         else:
             ramp = 1.0 if s >= self.start_at_iter else 0.0
+        return v * ramp
+
+    def _value_f32(self, step: torch.Tensor) -> torch.Tensor:
+        """:meth:`value` in float32 torch ops, op for op as
+        ``councilx/schedules.py`` on a traced step. A division by an
+        iteration count is a multiply by its float32 reciprocal, as XLA
+        compiles it (and as PyTorch on CUDA divides by a Python number)."""
+        s = step.to(torch.float32)
+        if self.anneal in ("linear", "cosine"):
+            t = ((s - self.anneal_start_iter)
+                 * (1.0 / self.anneal_iters)).clamp(0.0, 1.0)
+            if self.anneal == "cosine":
+                t = 0.5 * (1.0 - torch.cos(math.pi * t))
+            v = self.base + (self.end_value - self.base) * t
+        elif self.anneal == "step":
+            k = torch.floor((s - self.anneal_start_iter).clamp(min=0.0)
+                            * (1.0 / self.anneal_step_size))
+            v = self.base * torch.pow(self.anneal_gamma, k)
+        else:
+            v = torch.full_like(s, self.base)
+        if self.warmup_iters > 0:
+            ramp = ((s - self.start_at_iter)
+                    * (1.0 / self.warmup_iters)).clamp(0.0, 1.0)
+        else:
+            ramp = (s >= self.start_at_iter).to(torch.float32)
         return v * ramp
 
     @classmethod

@@ -11,6 +11,13 @@ port:
   (``data/ondevice.py::draw_crops``, keyed by the absolute step and the
   global row) and pins them. It makes no other CUDA call: the main thread
   issues the non-blocking host-to-device copies and the augment;
+* on a card the one-process step runs as captured CUDA graphs
+  (``CouncilTrainer.compile_step``), the counterpart of the JAX loop's
+  ``_jit_step``: the loop's first step of each shape runs eagerly as the
+  warm-up, the next is captured, and every later one replays. The
+  multi-process trainers (``parallel/``), whose steps run NCCL
+  collectives, step eagerly, chosen by their type; the run prints which
+  route it took;
 * the metrics stay on the device between log points; at each ``log_iter``
   they are stacked and read back with one copy;
 * snapshots (``ckpt/manager.py``) copy the state to the host before the
@@ -136,6 +143,11 @@ def train(cfg: Config, output_path: str = "outputs", run_name: str = "run",
     current step, writes a final snapshot and returns with
     ``interrupted=True``. Ignored when more than one process trains.
 
+    The step runs as captured CUDA graphs on a card with a one-process
+    trainer, eagerly on a CPU device the caller asked for and for the
+    multi-process trainers: the summary's ``graphs``, and the seconds each
+    capture took in ``capture_seconds``.
+
     Multi-process: every rank calls this (see the module docstring); the
     summary's ``snapshot_bytes`` is rank 0's alone (None elsewhere)."""
     n_proc = multihost.process_count()
@@ -171,6 +183,15 @@ def train(cfg: Config, output_path: str = "outputs", run_name: str = "run",
                 print(f"resumed from iteration {start_step}", flush=True)
     if state is None:
         state = trainer.init_state(seed)
+    # the step's route; a resumed run restores before this, so the graphs
+    # are captured on the restored state's tensors
+    graphs = dev.type == "cuda" and trainer.capturable
+    why = ("a one-process trainer on a card" if graphs else
+           f"{type(trainer).__name__} on {dev.type}")
+    step_fn = trainer.compile_step(state) if graphs else trainer.train_step
+    if primary:
+        print(f"train step: {'captured CUDA graphs' if graphs else 'eager'}"
+              f" ({why})", flush=True)
 
     bs = multihost.local_batch_size(cfg.batch_size, trainer.data_size)
     train_a, train_b, test_a, test_b = get_all_data_loaders(
@@ -253,7 +274,7 @@ def train(cfg: Config, output_path: str = "outputs", run_name: str = "run",
 
             if primary and profile_steps and step == profile_steps.start:
                 prof = _start_profile(dev)
-            state, metrics = trainer.train_step(state, x_a, x_b)
+            state, metrics = step_fn(state, x_a, x_b)
             step += 1
             window_steps += 1
             if prof is not None and step >= profile_steps.stop:
@@ -321,6 +342,9 @@ def train(cfg: Config, output_path: str = "outputs", run_name: str = "run",
         final_s = time.perf_counter() - t0
     return {"step": step, "start_step": start_step,
             "images_per_sec": images_per_sec, "interrupted": interrupted,
+            "graphs": graphs,
+            "capture_seconds": (list(step_fn.capture_seconds.values())
+                                if graphs else []),
             "native": train_a.native and train_b.native,
             "stage_wait_seconds": held["stage_wait"],
             "snapshot_copy_seconds": copy_s,

@@ -19,6 +19,12 @@ count and the step size live on the parameters' device, so a caller can
 select the old or the new values on the device without a host sync
 (``CouncilTrainer._apply_if_finite``). The moment math runs as
 ``torch._foreach_*`` ops over the whole group.
+
+:func:`assign_` writes the values a caller selected into the parameters'
+and the state's own tensors: the port's counterpart of the JAX step's
+donated state. A captured train step (``utils/graphs.py``) replays on the
+tensors it was captured with, so the state it updates must stay those
+tensors.
 """
 
 from __future__ import annotations
@@ -71,6 +77,13 @@ class Adam:
         """-> (new params, new state); inputs are left as they were."""
         params, grads = list(params), list(grads)
         n = len(params)
+        # the foreach ops launch once per chunk of tensors only where the
+        # tensors of every list share their strides: each gradient laid out
+        # as its parameter and moments are (autograd may hand back a
+        # permuted one), else they run one op per tensor
+        grads = [g if g.stride() == p.stride() else
+                 torch.empty_like(p, dtype=g.dtype).copy_(g)
+                 for g, p in zip(grads, params)]
         g = (torch._foreach_add(grads, params, alpha=self.weight_decay)
              if self.weight_decay else grads)
         decayed = torch._foreach_mul(state.mu, self.b1)
@@ -92,6 +105,17 @@ class Adam:
         if self.mu_dtype is not None:
             mu = [m.to(self.mu_dtype) for m in mu]
         return new_params, AdamState(count=count, mu=mu, nu=nu)
+
+
+@torch.no_grad()
+def assign_(params: Sequence[torch.Tensor], state: AdamState,
+            new_params: Sequence[torch.Tensor], new_state: AdamState) -> None:
+    """Copy new parameter and optimizer values into the tensors of
+    ``params`` and ``state``, which keep their storage."""
+    torch._foreach_copy_(list(params), list(new_params))
+    torch._foreach_copy_(state.mu, new_state.mu)
+    torch._foreach_copy_(state.nu, new_state.nu)
+    state.count.copy_(new_state.count)
 
 
 def make_optimizers(cfg) -> Tuple[Adam, Adam, Adam]:

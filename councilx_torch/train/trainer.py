@@ -27,6 +27,20 @@ member_offset + n_local)`` and the rows of data shard ``data_index`` of
 here: :meth:`_gather_members`, :meth:`_council_dis`, :meth:`_reduce_grads`,
 :meth:`_all_ok` and :meth:`_reduce_metrics`.
 
+Compiled step (:meth:`CouncilTrainer.compile_step`): the counterpart of the
+JAX trainer's ``jax.jit(self._step, donate_argnums=(0,))``. The eager step
+is written so that it can be captured as a CUDA graph and replayed
+(``utils/graphs.py``): everything that varies from step to step is a
+device value -- the step itself (a 0-d int32 tensor), so the loss-weight
+schedules and the council and focus start gates are evaluated on the
+device, as the JAX step evaluates them on its traced step; the optimizer
+updates write the parameters, Adam moments and counts in place
+(``train/optim.py``), as donation lets XLA do; the host moves the batch and
+the z codes to the device before the step, never inside it. The one host
+choice, ``cdis_ratio_mode="every_kth"``'s ``lax.cond``, is two graphs, one
+with the council-discriminator update and one without, picked by
+``step % k`` on the host.
+
 ``vgg_w > 0`` adds MUNIT's VGG16 perceptual loss (``nn/vgg.py``) with
 frozen weights from ``vgg_model_path``, outside the state and the
 optimizers, as the JAX trainer keeps ``vgg_params``. ``remat_stages``
@@ -47,6 +61,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
 
 import torch
+from torch.autograd.graph import increment_version
 from torch.utils.checkpoint import checkpoint
 
 from councilx_torch.config import Config
@@ -60,7 +75,9 @@ from councilx_torch.nn.generator import (AdaINGen, composite_with_mask,
                                          engine_kwargs)
 from councilx_torch.nn.vgg import (compute_vgg_loss, load_vgg,
                                    vgg_target_features)
-from councilx_torch.train.optim import Adam, AdamState, make_optimizers
+from councilx_torch.train.optim import (Adam, AdamState, assign_,
+                                        make_optimizers)
+from councilx_torch.utils.graphs import CaptureContext, require_cuda
 
 GROUPS = ("gen", "dis", "cdis")
 
@@ -131,6 +148,15 @@ class TrainState:
             "generator": self.generator.get_state()}
 
 
+def _gate(step, start: int):
+    """1.0 from ``start`` on, else 0.0: a float for an int step, a 0-d
+    float32 tensor on the step's device for a tensor step (the JAX step's
+    traced compare)."""
+    if isinstance(step, torch.Tensor):
+        return (step >= start).to(torch.float32)
+    return float(step >= start)
+
+
 def group_params(modules: Mapping[str, Sequence[torch.nn.Module]]
                  ) -> List[torch.nn.Parameter]:
     """One optimizer group's parameters: by direction, member, then
@@ -151,6 +177,11 @@ class CouncilTrainer:
     """Builds the council's modules and optimizers and runs the train step
     on ``device``: the card unless the caller asks for another device (the
     CPU tests pass ``device="cpu"``)."""
+
+    # the step can be captured as a CUDA graph (compile_step); the
+    # multi-process trainers (parallel/), whose hooks run NCCL collectives,
+    # say False and train eagerly
+    capturable = True
 
     def __init__(self, cfg: Config, device="cuda"):
         if cfg.dis.norm in ("sn", "bn"):
@@ -354,8 +385,9 @@ class CouncilTrainer:
             return x_t, mask, contents
         return outs, None, contents
 
-    def _w(self, name: str, base, step: int):
-        """Effective loss weight at ``step`` (constant unless scheduled)."""
+    def _w(self, name: str, base, step):
+        """Effective loss weight at ``step`` (an int, or the step's 0-d
+        device tensor): ``base`` unless scheduled, as in the JAX trainer."""
         sched = self.cfg.loss_schedules.get(name)
         if sched is None or sched.is_constant:
             return base
@@ -366,7 +398,7 @@ class CouncilTrainer:
     # ------------------------------------------------------------------
 
     def _dis_loss_dir(self, dis: Sequence[MsImageDis], fakes: torch.Tensor,
-                      real: torch.Tensor, step: int) -> torch.Tensor:
+                      real: torch.Tensor, step) -> torch.Tensor:
         loss = sum(gan_dis_loss(d_i(f_i), d_i(real), self.gan_type)
                    for d_i, f_i in zip(dis, fakes))
         # gan_w weights the discriminator objective too (MUNIT semantics)
@@ -374,7 +406,7 @@ class CouncilTrainer:
 
     def _gen_loss_dir(self, gens: Sequence[AdaINGen],
                       dis: Sequence[MsImageDis], cdis: Sequence[MsImageDis],
-                      x_in: torch.Tensor, z: torch.Tensor, step: int,
+                      x_in: torch.Tensor, z: torch.Tensor, step,
                       out_offset: int = 0, member_scale: float = 1.0,
                       translated=None):
         """Generator loss for the members in ``gens`` -> (total, metrics).
@@ -402,13 +434,13 @@ class CouncilTrainer:
                 cdis, x_t, x_in, self.gan_type, self.conditional,
                 out_offset=out_offset, remat=cfg.remat,
                 polarity=cc.council_polarity)
-            gate = float(step >= cc.council_start_at_iter)
+            gate = _gate(step, cc.council_start_at_iter)
             m["loss_gen_council"] = loss_c
             total = total + self._w("council_w", cc.council_w,
                                     step) * gate * loss_c
 
         if self.focus:
-            gate_f = float(step >= cc.focus_start_at_iter)
+            gate_f = _gate(step, cc.focus_start_at_iter)
             ls = mask_size_loss(mask) * member_scale
             lb = mask_binary_loss(mask) * member_scale
             m["loss_gen_mask_size"] = ls
@@ -474,12 +506,13 @@ class CouncilTrainer:
 
     def _apply_if_finite(self, params: Sequence[torch.Tensor],
                          grads: Sequence[torch.Tensor], tx: Adam,
-                         opt: AdamState):
+                         opt: AdamState) -> torch.Tensor:
         """One optimizer phase, guarded by ``cfg.skip_nonfinite_updates``:
-        writes the new values into ``params`` and returns (new opt state,
-        ok). With the guard on and any non-finite gradient coordinate, the
-        params and the optimizer state keep their values (a select on the
-        device, no host sync) and ok is 0."""
+        writes the new values into ``params`` and ``opt``'s own tensors
+        (the JAX step's donated state) and returns ok. With the guard on
+        and any non-finite gradient coordinate, the params and the
+        optimizer state keep their values (a select on the device, no host
+        sync) and ok is 0."""
         new_params, new_opt = tx.update(params, grads, opt)
         ok = torch.ones((), dtype=torch.float32, device=self.device)
         if self.cfg.skip_nonfinite_updates:
@@ -494,10 +527,8 @@ class CouncilTrainer:
                 count=torch.where(good, new_opt.count, opt.count),
                 mu=sel(new_opt.mu, opt.mu), nu=sel(new_opt.nu, opt.nu))
             ok = good.float()
-        with torch.no_grad():
-            for p, v in zip(params, new_params):
-                p.copy_(v)
-        return new_opt, ok
+        assign_(params, opt, new_params, new_opt)
+        return ok
 
     def _to_device(self, a) -> torch.Tensor:
         """Host data to the device in the compute dtype, without blocking:
@@ -578,8 +609,7 @@ class CouncilTrainer:
                z_by_dir) -> Dict[str, torch.Tensor]:
         with torch.no_grad():
             return {d: self._translate_members(
-                state.gen[d], inputs[d][0],
-                self._to_device(z_by_dir[d]))[0]
+                state.gen[d], inputs[d][0], z_by_dir[d])[0]
                 for d in self.directions}
 
     def _cdis_update(self, state: TrainState, inputs, fakes):
@@ -592,7 +622,7 @@ class CouncilTrainer:
             n_total=self.n, remat=self.cfg.remat,
             polarity=self.cfg.council.council_polarity)
             for d in self.directions)
-        state.opt_cdis, ok = self._apply_if_finite(
+        ok = self._apply_if_finite(
             params, self._reduce_grads(_grads(loss, params)), self.cdis_tx,
             state.opt_cdis)
         return loss.detach(), ok
@@ -604,14 +634,64 @@ class CouncilTrainer:
         on the device (no host sync). ``zs``: injected z codes as
         :meth:`draw_zs` returns them (numpy or tensors); only the streams
         ``cfg.z_mode`` reads are needed."""
-        cfg, cc = self.cfg, self.cfg.council
+        x_a, x_b, zs = self._step_inputs(state, x_a, x_b, zs)
+        step = torch.full((), state.step, dtype=torch.int32,
+                          device=self.device)
+        metrics = self._step(state, x_a, x_b, zs, step,
+                             self._cdis_now(state.step))
+        state.step += 1
+        return state, metrics
+
+    def _z_streams(self, zs: Mapping[str, Any]) -> Dict[str, Any]:
+        """The z streams the step reads under ``cfg.z_mode`` and
+        ``cdis_ratio_mode``: "gen"; "dis" unless shared; "cdis" per phase;
+        "cdis_repeat" for the extra council-discriminator updates of
+        ``k_per_step``."""
+        z_mode = self.cfg.z_mode
+        keys = ["gen"] + (["dis"] if z_mode != "shared" else []) + (
+            ["cdis"] if z_mode == "per_phase" else [])
+        out = {k: zs[k] for k in keys}
+        if self.has_council and self._cdis_ratio() > 1 and \
+                self.cfg.council.cdis_ratio_mode == "k_per_step":
+            out["cdis_repeat"] = zs["cdis_repeat"]
+        return out
+
+    def _step_inputs(self, state: TrainState, x_a, x_b, zs):
+        """The step's host work, done before it: the batch on the device in
+        the compute dtype, and the z codes (drawn from ``state.generator``
+        when None) that the step reads, this trainer's block of each, on
+        the device in the compute dtype."""
         x_a, x_b = self._to_device(x_a), self._to_device(x_b)
-        inputs = {"a2b": (x_a, x_b), "b2a": (x_b, x_a)}
-        step = state.step
         if zs is None:
             zs = self.draw_zs(state, x_a.shape[0] * self.data_size)
-        zs = self._local_zs(zs)
-        zs_gen = {d: self._to_device(zs["gen"][d]) for d in self.directions}
+        zs = self._local_zs(self._z_streams(zs))
+        dev = {k: {d: self._to_device(z) for d, z in v.items()}
+               for k, v in zs.items() if k != "cdis_repeat"}
+        if "cdis_repeat" in zs:
+            dev["cdis_repeat"] = [{d: self._to_device(z) for d, z in s.items()}
+                                  for s in zs["cdis_repeat"]]
+        return x_a, x_b, dev
+
+    def _cdis_now(self, step: int) -> bool:
+        """Whether step ``step`` updates the council discriminators: always,
+        but under ``cdis_ratio_mode="every_kth"`` (k > 1) only where
+        ``step % k == 0`` (the JAX step's ``lax.cond``)."""
+        ratio = self._cdis_ratio()
+        return not (self.has_council and ratio > 1
+                    and self.cfg.council.cdis_ratio_mode == "every_kth") \
+            or step % ratio == 0
+
+    def _step(self, state: TrainState, x_a: torch.Tensor, x_b: torch.Tensor,
+              zs: Mapping[str, Any], step: torch.Tensor,
+              cdis_now: bool) -> Dict[str, torch.Tensor]:
+        """The step's device work on inputs :meth:`_step_inputs` made, at
+        the 0-d int32 device ``step``; updates the state's tensors in place
+        and returns the metrics. It makes no host sync and reads no
+        host value that changes from step to step but ``cdis_now``, so that
+        :meth:`compile_step` can capture it."""
+        cfg, cc = self.cfg, self.cfg.council
+        inputs = {"a2b": (x_a, x_b), "b2a": (x_b, x_a)}
+        zs_gen = zs["gen"]
         z_mode = cfg.z_mode
         metrics: Dict[str, torch.Tensor] = {}
 
@@ -646,15 +726,14 @@ class CouncilTrainer:
                                                         fakes_i)
                     ok_cdis = ok_cdis * ok_i
             else:   # "every_kth": one update on steps where step % k == 0
-                updated = step % ratio == 0
-                if updated:
+                if cdis_now:
                     loss_cdis, ok_cdis = self._cdis_update(state, inputs,
                                                            fakes_cdis)
                 else:
                     loss_cdis = torch.zeros((), device=self.device)
                     ok_cdis = torch.ones((), device=self.device)
-                metrics["cdis_updated"] = torch.tensor(
-                    float(updated), device=self.device)
+                metrics["cdis_updated"] = torch.full(
+                    (), float(cdis_now), device=self.device)
             metrics["loss_dis_council"] = loss_cdis
             if cfg.skip_nonfinite_updates:
                 metrics["finite_cdis"] = ok_cdis
@@ -664,7 +743,7 @@ class CouncilTrainer:
         loss_dis = sum(self._dis_loss_dir(state.dis[d], fakes[d],
                                           inputs[d][1], step)
                        for d in self.directions)
-        state.opt_dis, ok_dis = self._apply_if_finite(
+        ok_dis = self._apply_if_finite(
             params, self._reduce_grads(_grads(loss_dis, params)),
             self.dis_tx, state.opt_dis)
         metrics["loss_dis_adv"] = loss_dis.detach()
@@ -692,16 +771,16 @@ class CouncilTrainer:
             grads = _grads(loss_gen, params)
             loss_gen = loss_gen.detach()
         del translated
-        state.opt_gen, ok_gen = self._apply_if_finite(
+        ok_gen = self._apply_if_finite(
             params, self._reduce_grads(grads), self.gen_tx, state.opt_gen)
         metrics["loss_gen_total"] = loss_gen
         metrics.update(aux)
         if cfg.skip_nonfinite_updates:
             metrics["finite_gen"] = ok_gen
-        state.step += 1
-        return state, self._reduce_metrics(metrics)
+        return self._reduce_metrics(metrics)
 
-    def _gen_grads_chunked(self, state: TrainState, inputs, zs, step: int):
+    def _gen_grads_chunked(self, state: TrainState, inputs, zs,
+                           step: torch.Tensor):
         """Gen-phase gradients over ``cfg.gen_member_chunks`` contiguous
         member groups, one backward per group in turn, so that at most one
         group's activations are alive. Each member's loss terms depend only
@@ -736,6 +815,20 @@ class CouncilTrainer:
         grads = [grads_by_param[id(p)] for p in group_params(state.gen)]
         return loss_gen, aux, grads
 
+    def compile_step(self, state: TrainState) -> "CompiledStep":
+        """The step of ``state`` as captured CUDA graphs (counterpart of the
+        JAX trainer's ``jax.jit(self._step, donate_argnums=(0,))``): call
+        it as :meth:`train_step`. A CUDA trainer of one process only; the
+        first call of each step shape runs eagerly (a real step) on the
+        capture's side stream, the next captures, and every call replays.
+        See :class:`CompiledStep`."""
+        require_cuda(self.device, "compile_step")
+        if not self.capturable:
+            raise ValueError(
+                f"compile_step: {type(self).__name__} runs NCCL collectives "
+                "in its step, which are not captured; it trains eagerly")
+        return CompiledStep(self, state)
+
     # ------------------------------------------------------------------
     # sampling
     # ------------------------------------------------------------------
@@ -757,3 +850,113 @@ class CouncilTrainer:
                                                self._to_device(z))
         return (self._gather_members(x_t),
                 None if mask is None else self._gather_members(mask))
+
+
+class CompiledStep:
+    """One trainer's step for one :class:`TrainState`, captured as CUDA
+    graphs and replayed: ``state, metrics = compiled(state, x_a, x_b,
+    zs=None)``, the same step as :meth:`CouncilTrainer.train_step` on the
+    same state, batch and z, launch for launch.
+
+    One graph per step shape: the batch shapes and, under
+    ``cdis_ratio_mode="every_kth"``, whether the step updates the council
+    discriminators (so two graphs, picked by ``step % k`` on the host, as
+    the JAX step's ``lax.cond`` picks on the device). The first call of a
+    shape is a real step run eagerly on the capture's side stream, the
+    warm-up that builds what the step builds lazily (``utils/graphs.py``);
+    the next call captures the step and replays it, and so does every
+    later one. What varies per step is copied into the graph's static
+    inputs before the replay: the batch, the z codes (still drawn on the
+    host from ``state.generator``, so the z stream and a resumed run stay
+    those of the eager step) and the step as a device int. The graphs
+    update the state's own tensors in place; a replay does not bump their
+    autograd versions, so this does it on the parameters, which keeps the
+    no-grad derived-weight caches (``nn/blocks.py``) honest for the
+    sampling and evaluation calls between steps. It bumps them before each
+    capture too: an eager no-grad call between a shape's warm-up and its
+    capture (a sample) leaves a cache entry at the parameters' current
+    version, and a capture that hit it would read that eager tensor on
+    every replay (frozen weights, freed by the next sample) instead of
+    deriving the weights in the graph. The metrics come back as
+    one device copy of the graph's packed metrics, so a later replay does
+    not overwrite them.
+
+    The graphs are tied to this state's tensors: another ``TrainState``
+    (a restored one, say) needs its own compiled step."""
+
+    def __init__(self, trainer: CouncilTrainer, state: TrainState):
+        self.trainer, self.state = trainer, state
+        self.ctx = CaptureContext(trainer.device, "compile_step")
+        self.calls: Dict[tuple, Any] = {}
+        self.warmed = set()
+        self._params = [p for grp in GROUPS
+                        for p in group_params(getattr(state, grp))]
+
+    def _flat(self, x_a, x_b, zs, step) -> List[torch.Tensor]:
+        """The step's varying inputs as one list, in a fixed order."""
+        flat = [x_a, x_b, step]
+        for k, streams in zs.items():
+            if k == "cdis_repeat":
+                flat += [s[d] for s in streams for d in sorted(s)]
+            else:
+                flat += [streams[d] for d in sorted(streams)]
+        return flat
+
+    def _unflat(self, flat: Sequence[torch.Tensor], like):
+        """:meth:`_flat`'s list back as ``(x_a, x_b, zs, step)``."""
+        it = iter(flat[3:])
+        zs = {}
+        for k, streams in like.items():
+            if k == "cdis_repeat":
+                zs[k] = [{d: next(it) for d in sorted(s)} for s in streams]
+            else:
+                zs[k] = {d: next(it) for d in sorted(streams)}
+        return flat[0], flat[1], zs, flat[2]
+
+    def _capture(self, key, flat, like, cdis_now: bool):
+        t, state = self.trainer, self.state
+        names: List[str] = []
+
+        def step_fn(*flat_in):
+            x_a, x_b, zs, step = self._unflat(flat_in, like)
+            metrics = t._step(state, x_a, x_b, zs, step, cdis_now)
+            names[:] = list(metrics)
+            return torch.stack([v.detach().reshape(()).float()
+                                for v in metrics.values()])
+
+        return self.ctx.capture(step_fn, flat, f"train step {key}"), names
+
+    @property
+    def capture_seconds(self) -> Dict[tuple, float]:
+        """Each step shape's capture seconds."""
+        return {k: c.capture_seconds for k, (c, _) in self.calls.items()}
+
+    def __call__(self, state: TrainState, x_a, x_b,
+                 zs: Optional[Mapping[str, Any]] = None):
+        if state is not self.state:
+            raise ValueError("this compiled step was captured on another "
+                             "TrainState's tensors: compile_step(state) "
+                             "for this one")
+        t = self.trainer
+        x_a, x_b, zs = t._step_inputs(state, x_a, x_b, zs)
+        cdis_now = t._cdis_now(state.step)
+        key = (tuple(x_a.shape), tuple(x_b.shape), cdis_now)
+        step = torch.full((), state.step, dtype=torch.int32,
+                          device=t.device)
+        if key not in self.calls:
+            if key not in self.warmed:
+                metrics = self.ctx.run(t._step, state, x_a, x_b, zs, step,
+                                       cdis_now)
+                self.warmed.add(key)
+                state.step += 1
+                return state, metrics
+            for p in self._params:
+                increment_version(p)
+            self.calls[key] = self._capture(
+                key, self._flat(x_a, x_b, zs, step), zs, cdis_now)
+        call, names = self.calls[key]
+        packed = call(*self._flat(x_a, x_b, zs, step)).clone()
+        for p in self._params:
+            increment_version(p)
+        state.step += 1
+        return state, {k: packed[i] for i, k in enumerate(names)}

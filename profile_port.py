@@ -18,15 +18,29 @@ configs are ``chip_smoke.py``'s, with random weights from seed 0:
 
 For each path it prints the wall time per call (host clock around
 synchronized work), the host time to enqueue one call, the device kernel
-time per call (the sum of every kernel's duration in the trace) and the
-device's busy share (kernel time over wall time), then the kernel time per
-call by class of kernel and the heaviest kernels by name. ``--out DIR``
-also writes the summaries to DIR/profile.json.
+time per call (the sum of every kernel's duration in the trace), the
+device ops and the CUDA API launch calls per call (the trace's device
+events; its runtime and driver launch calls: kernels, cooperative
+kernels, graphs) and the device's busy share (the time at least one
+device op runs, the union of their intervals, over the wall time),
+then the kernel time per call by class of kernel and the heaviest
+kernels by name. ``--out DIR`` also writes the summaries to
+DIR/profile.json.
 
 ``--engines`` profiles instead the generator's conv-engine settings of
 ``chip_smoke.py``'s engines phase: serving (1.) under each of
 ``chip_smoke.ENGINE_SERVE``, and the train step (2.) under each of
 ``chip_smoke.ENGINE_TRAIN``, unquantized.
+
+``--graphs`` profiles the captured routes (``councilx_torch/utils/
+graphs.py``) beside the eager ones: serving (1., unquantized) as the
+engine's captured device call (the inputs copied into the bucket's static
+buffers, the replay, the output copied out), and the train step (2.)
+through ``CouncilTrainer.compile_step`` (its eager warm-up call, the
+capture and one replay are the 3 warm calls); and for each graph the
+host ms of one ``replay()`` launched right after a synchronize, while
+the previous replay still runs and behind a ~0.5 s sleep kernel
+(:func:`replay_host_ms`).
 """
 
 import argparse
@@ -76,15 +90,23 @@ def classify(name: str) -> str:
 
 
 def kernel_table(prof, calls: int) -> dict:
-    """Device ms per call by kernel name, from the trace's CUDA events."""
+    """Device ms per call by kernel name, from the trace's CUDA events;
+    the CUDA API launch calls per call; the ms per call in which at least
+    one device op runs (the union of their intervals)."""
     per_name = defaultdict(float)
     launches = defaultdict(int)
+    api, spans = 0, []
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             per_name[e.name] += e.time_range.elapsed_us() / 1e3 / calls
             launches[e.name] += 1
+            spans.append((e.time_range.start, e.time_range.end))
+        elif e.name.startswith("cu") and "Launch" in e.name:
+            api += 1
     return {"ms": dict(per_name),
-            "launches": {k: v / calls for k, v in launches.items()}}
+            "launches": {k: v / calls for k, v in launches.items()},
+            "api_launches": api / calls,
+            "busy_ms": chip_smoke.union_us(spans) / 1e3 / calls}
 
 
 def profile(fn, warm: int, calls: int, label: str) -> dict:
@@ -114,8 +136,9 @@ def profile(fn, warm: int, calls: int, label: str) -> dict:
     summary = {
         "path": label, "calls": calls, "wall_ms": wall_ms,
         "enqueue_ms": 1e3 * float(np.median(enqueue)),
-        "kernel_ms": kernel_ms, "busy_share": kernel_ms / wall_ms,
+        "kernel_ms": kernel_ms, "busy_share": table["busy_ms"] / wall_ms,
         "launches": sum(table["launches"].values()),
+        "api_launches": table["api_launches"],
         "by_class_ms": dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
         "top_kernels": [
             {"name": n[:120], "ms": ms, "launches": table["launches"][n]}
@@ -123,7 +146,9 @@ def profile(fn, warm: int, calls: int, label: str) -> dict:
                                 key=lambda kv: -kv[1])[:25]]}
     print(f"[profile] {label}: wall {wall_ms:.6g} ms/call, enqueue "
           f"{summary['enqueue_ms']:.6g} ms, kernels {kernel_ms:.6g} ms "
-          f"({summary['launches']:.6g} launches) per call, device busy "
+          f"({summary['launches']:.6g} device ops, "
+          f"{summary['api_launches']:.6g} API launch calls) per call, "
+          f"device busy "
           f"{100 * summary['busy_share']:.4g}%", flush=True)
     for cls, ms in summary["by_class_ms"].items():
         print(f"[profile] {label}:   {ms:9.4f} ms  {100 * ms / kernel_ms:5.1f}%"
@@ -163,6 +188,8 @@ def main():
                     help="directory for profile.json, the summaries")
     ap.add_argument("--engines", action="store_true",
                     help="profile the conv-engine settings instead")
+    ap.add_argument("--graphs", action="store_true",
+                    help="profile the captured routes beside the eager")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_port: no CUDA device")
@@ -173,7 +200,8 @@ def main():
     card = chip_smoke.card()
     print(f"[profile] {torch.cuda.get_device_name(0)} ({card}); torch "
           f"{torch.__version__}", flush=True)
-    paths = profile_engines() if args.engines else profile_paths()
+    paths = (profile_engines() if args.engines else
+             profile_graphs() if args.graphs else profile_paths())
     if args.out:
         with open(os.path.join(args.out, "profile.json"), "w") as f:
             json.dump({"card": card, "paths": paths}, f, indent=1)
@@ -219,6 +247,71 @@ def profile_engines() -> list:
         out.append(_train_profile({**chip_smoke.HEADLINE, **over},
                                   f"train_step_{name}", x_a, x_b))
         torch.cuda.empty_cache()
+    return out
+
+
+def replay_host_ms(call, reps: int = 3) -> dict:
+    """Host ms of one replay of a captured call: launched on an idle
+    device, while the previous replay still runs, and behind a sleep
+    kernel of ~0.5 s (a launch that waits for the card's queue to drain
+    takes that much longer there; host work that launches the graph
+    does not); with the host CPU ms of the idle launch."""
+    idle, cpu, busy, behind = [], [], [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        c0, t0 = time.process_time(), time.perf_counter()
+        call.replay()
+        idle.append(1e3 * (time.perf_counter() - t0))
+        cpu.append(1e3 * (time.process_time() - c0))
+        t0 = time.perf_counter()
+        call.replay()
+        busy.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(1e9))          # ~0.5 s at <= 2 GHz
+        t0 = time.perf_counter()
+        call.replay()
+        behind.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return {"idle_ms": float(np.median(idle)),
+            "idle_cpu_ms": float(np.median(cpu)),
+            "in_flight_ms": float(np.median(busy)),
+            "behind_sleep_ms": float(np.median(behind))}
+
+
+def profile_graphs() -> list:
+    """Serving at bucket 8 and the headline train step, each eager and
+    captured, from the same weights and inputs."""
+    cfg = Config.from_dict(chip_smoke.FLAGSHIP)
+    tr = Translator(cfg, device="cuda")
+    gen = tr.init_members(1, seed=0)[0]
+    x8, z8, x_a, x_b = _inputs(cfg)
+    hw = (chip_smoke.HW, chip_smoke.HW)
+    call = tr.captured("translate_u8io_device", gen, chip_smoke.BATCH, hw)
+    out = [profile(lambda: tr.translate_u8io_device(gen, x8, z=z8), 3, 5,
+                   "serve_bucket8_eager"),
+           profile(lambda: call(x8, z8).clone(), 3, 5,
+                   "serve_bucket8_graph")]
+    out[-1]["replay_host"] = replay_host_ms(call)
+    print(f"[profile] serve_bucket8_graph: replay host ms "
+          f"{out[-1]['replay_host']}", flush=True)
+    del call, gen, tr
+    torch.cuda.empty_cache()
+    out.append(_train_profile(chip_smoke.HEADLINE, "train_step_eager", x_a,
+                              x_b))
+    torch.cuda.empty_cache()
+    trainer = CouncilTrainer(Config.from_dict(chip_smoke.HEADLINE),
+                             device="cuda")
+    holder = {"state": trainer.init_state(seed=0)}
+    compiled = trainer.compile_step(holder["state"])
+
+    def step():
+        holder["state"], _ = compiled(holder["state"], x_a, x_b)
+
+    out.append(profile(step, 3, 3, "train_step_graph"))
+    (call, _), = compiled.calls.values()
+    out[-1]["replay_host"] = replay_host_ms(call)
+    print(f"[profile] train_step_graph: replay host ms "
+          f"{out[-1]['replay_host']}", flush=True)
     return out
 
 

@@ -455,3 +455,82 @@ def test_remat_stage_launches_double_the_forward_counts():
     assert got["conv_int8.launches"] == 0
     with pytest.raises(AssertionError):
         chip_smoke.check_train_launches(got, steps, "remat_stages")
+
+
+class _Engine:
+    """The attributes of a BatchingEngine that engine_forwards and
+    check_replays read."""
+
+    def __init__(self, graphs, n_members=1, replays=0):
+        self.graphs, self.n_members, self.replays = graphs, n_members, replays
+        self.buckets = [1, 2, 4, chip_smoke.BATCH]
+
+
+@pytest.mark.parametrize("graphs,members,want", [
+    # captured: one eager run and one capture per bucket of (1, 2, 4, 8),
+    # the 2 batches replay
+    (True, 1, 8), (True, chip_smoke.N_MEMBERS, 32),
+    # eager: one run per bucket at warm-up and one per batch
+    (False, 1, 6), (False, chip_smoke.N_MEMBERS, 24)])
+def test_engine_forwards_count_the_wrapper_calls(graphs, members, want):
+    assert chip_smoke.engine_forwards(_Engine(graphs, members), 2) == want
+
+
+def test_check_replays_wants_every_batch_and_bucket_replayed():
+    chip_smoke.check_replays(_Engine(True, replays=4 + 2), 2, "test")
+    chip_smoke.check_replays(_Engine(False), 2, "test")
+    for wrong in (0, 2, 5):
+        with pytest.raises(AssertionError, match="replays"):
+            chip_smoke.check_replays(_Engine(True, replays=wrong), 2, "test")
+
+
+def _graph_cfg(name):
+    from councilx_torch.config import Config
+
+    over, steps = {n: (o, s) for n, o, s in chip_smoke.GRAPH_TRAIN}[name]
+    return Config.from_dict({**chip_smoke.HEADLINE, **over}), steps
+
+
+def test_graph_train_settings_exercise_what_they_name():
+    """[graphs]: the scheduled setting's council gate opens on a replay
+    (after the eager warm-up call and the capture) and its weights are
+    schedules; every_kth captures both of its graphs within its steps; the
+    others keep the headline widths."""
+    cfg, steps = _graph_cfg("scheduled")
+    cc = cfg.council
+    assert 2 <= cc.council_start_at_iter < steps
+    assert cfg.loss_schedules.keys() == {"recon_x_w", "council_w",
+                                         "mask_total_w"}
+    assert 2 <= cc.focus_start_at_iter < steps and cc.focus_enabled
+    cfg, steps = _graph_cfg("every_kth")
+    k = cfg.council.council_dis_relative_iteration
+    assert (k, cfg.council.cdis_ratio_mode) == (2, "every_kth")
+    # per step shape: one eager call, one capture, then replays
+    assert steps >= 3 * k
+    cfg, _ = _graph_cfg("remat_stages")
+    assert cfg.remat_stages
+    # vgg_w: its warm-up, its capture and at least one more replay
+    assert chip_smoke.GRAPH_VGG_STEPS >= 3
+    for name, _, _ in chip_smoke.GRAPH_TRAIN:
+        c, _ = _graph_cfg(name)
+        assert (c.gen.dim, c.council.council_size, c.batch_size) == (
+            64, chip_smoke.N_MEMBERS, chip_smoke.BATCH)
+
+
+def test_graphs_phase_runs_after_the_engines_and_before_the_train_cli():
+    import inspect
+
+    src = inspect.getsource(chip_smoke.main)
+    at = [src.index(call) for call in ("phase_engines(card_str)",
+                                       "phase_graphs(card_str)",
+                                       "phase_train_cli(card_str")]
+    assert at == sorted(at)
+    assert chip_smoke.GRAPH_WARM + chip_smoke.GRAPH_REPLAYS == 12
+
+
+@pytest.mark.parametrize("spans,want", [
+    ([], 0.0), ([(0, 5)], 5.0), ([(0, 5), (5, 7)], 7.0),
+    # overlapping ops count once; a gap counts not at all
+    ([(0, 5), (2, 4), (3, 8), (10, 11)], 9.0), ([(4, 6), (0, 5)], 6.0)])
+def test_union_us_counts_overlaps_once(spans, want):
+    assert chip_smoke.union_us(spans) == want

@@ -792,3 +792,204 @@ def test_quantized_translate_on_gpu_matches_cpu(cuda, mode):
     assert conv3x3_valid.launches == counts[1]
     d = (got - want).abs()
     assert float(d.mean()) <= 1e-3 and float(d.max()) <= 5e-2
+
+
+# ---------------------------------------------------------------------------
+# the captured routes (utils/graphs.py): each replay bit-equal to the eager
+# call it captured
+# ---------------------------------------------------------------------------
+
+
+def _coop_cases(cuda):
+    """The three cooperative launches, at shapes that take them: the norm
+    forward and backward split over HW (batch 1 at 256x256), and Q2 per
+    image."""
+    from councilx_torch.ops import quant as q_ops
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(1, 256, 256, 64, device=cuda, generator=g).bfloat16()
+    dy = torch.randn(1, 256, 256, 64, device=cuda, generator=g).bfloat16()
+    gm = torch.randn(1, 64, device=cuda, generator=g)
+    _, mean, rstd = norm_ops._forward(x, gm, gm, 1e-5)
+    xq = torch.randn(1, 64, 64, 256, device=cuda, generator=g).bfloat16()
+    return {
+        "norm_fwd": lambda: instance_norm(x, gm, gm),
+        "norm_bwd": lambda: instance_norm_backward(dy, x, mean, rstd, gm)[0],
+        "quant_per_image": lambda: q_ops.quantize_act(xq, 1, "reflect")[0]}
+
+
+@pytest.mark.parametrize("case", ["norm_fwd", "norm_bwd", "quant_per_image"])
+def test_cooperative_launch_is_captured(cuda, case):
+    """A cooperative launch inside a CUDA graph replays bit-equal to the
+    eager launch (a capture the runtime refused would raise)."""
+    from councilx_torch.utils.graphs import CaptureContext
+
+    fn = _coop_cases(cuda)[case]
+    ctx = CaptureContext(cuda)
+    want = ctx.run(fn).clone()
+    call = ctx.capture(fn, [], case)
+    got = call().clone()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _serving_cfg():
+    raw = dict(chip_smoke.FLAGSHIP)
+    raw["gen"] = {**raw["gen"], "n_res": 2}
+    return Config.from_dict(raw)
+
+
+@pytest.mark.parametrize("bucket", [1, 8])
+@pytest.mark.parametrize("method", ["translate_u8io_device",
+                                    "translate_all_u8io_device"])
+def test_captured_serving_call_is_the_eager_one(cuda, bucket, method):
+    """The flagship serving model (n_res cut to 2) at buckets 1 and 8:
+    the replayed graph's uint8 output bit-equal to the eager call's, on
+    two different inputs (the second through the static buffers)."""
+    cfg = _serving_cfg()
+    tr = Translator(cfg, device=cuda)
+    gens = tr.init_members(2, seed=0)
+    params = gens if "all" in method else gens[0]
+    call = tr.captured(method, params, bucket, (256, 256))
+    r = np.random.default_rng(bucket)
+    for _ in range(2):
+        x = r.integers(0, 256, (bucket, 256, 256, 3), dtype=np.uint8)
+        z = r.standard_normal((bucket, cfg.gen.style_dim)).astype(
+            np.float32)
+        got = call(torch.from_numpy(x), torch.from_numpy(z)).cpu()
+        want = getattr(tr, method)(params, x, z).cpu()
+        assert torch.equal(got, want)
+
+
+def test_engine_pipeline_returns_each_request_its_own_image(cuda):
+    """Back-to-back distinct full batches through the 2-deep pipeline on
+    the captured route: every request gets its own image, bit-equal to
+    the eager call of its batch."""
+    from councilx_torch.inference.server import BatchingEngine
+
+    cfg = _serving_cfg()
+    tr = Translator(cfg, device=cuda)
+    gen = tr.init_members(1, seed=1)[0]
+    engine = BatchingEngine(tr, gen, (256, 256), max_batch=8,
+                            max_delay_ms=500.0)
+    assert engine.graphs
+    r = np.random.default_rng(2)
+    images = r.integers(0, 256, (48, 256, 256, 3), dtype=np.uint8)
+    engine.start()
+    try:
+        engine.warmup([8])
+        futures = [engine.submit(im, seed=i) for i, im in enumerate(images)]
+        outs = [f.result(timeout=300) for f in futures]
+        stats = engine.snapshot_stats()
+    finally:
+        engine.stop()
+    assert stats["batch_size_histogram"] == {8: 6}, stats
+    zs = np.stack([engine.make_z(i) for i in range(48)])
+    for j in range(0, 48, 8):
+        want = tr.translate_u8io(gen, images[j:j + 8], z=zs[j:j + 8])
+        for i in range(8):
+            np.testing.assert_array_equal(outs[j + i], want[i])
+    assert len({o.tobytes() for o in outs}) == 48
+
+
+# the one-process trainer's options, at chip_smoke's reduced config
+GRAPH_VARIANTS = {
+    "float32": {},
+    "bfloat16": {"compute_dtype": "bfloat16"},
+    "remat": {"compute_dtype": "bfloat16", "remat": True},
+    "remat_nested": {"compute_dtype": "bfloat16", "remat": True,
+                     "remat_stages": True},
+    "member_chunks": {"compute_dtype": "bfloat16", "gen_member_chunks": 2},
+    "per_phase_guarded": {"compute_dtype": "bfloat16", "z_mode": "per_phase",
+                          "skip_nonfinite_updates": True},
+    "dis_shared_k_per_step": {
+        "compute_dtype": "bfloat16", "z_mode": "dis_shared",
+        "council": {"council_size": 2, "council_w": 0.2,
+                    "council_dis_relative_iteration": 2,
+                    "cdis_ratio_mode": "k_per_step"}},
+    "both_directions_no_focus": {"compute_dtype": "bfloat16",
+                                 "do_b2a": True,
+                                 "focus_loss": {"focus_enabled": False}},
+    "engines": {"compute_dtype": "bfloat16", "upsample_engine": "phase",
+                "resblock_fuse_pad": True},
+    "vgg": {"compute_dtype": "bfloat16", "vgg_w": 1.0},
+}
+
+
+@pytest.mark.parametrize("variant", sorted(GRAPH_VARIANTS))
+def test_captured_train_steps_are_the_eager_ones(cuda, tmp_path, variant):
+    """chip_smoke's reduced config under each option of the one-process
+    trainer: one eager warm-up call and three replays of the compiled
+    step, every metric, parameter and Adam moment bit-equal to four eager
+    steps from the same weights, batch and z (cuDNN deterministic: the
+    discriminators' convs)."""
+    raw = {**chip_smoke.REDUCED, **GRAPH_VARIANTS[variant]}
+    if variant == "vgg":
+        raw["vgg_model_path"] = chip_smoke.write_random_vgg(
+            str(tmp_path / "vgg16.npz"))
+    cfg = Config.from_dict(raw)
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager = CouncilTrainer(cfg, device=cuda)
+        ref = eager.init_state(seed=0)
+        comp = CouncilTrainer(cfg, device=cuda)
+        state = comp.load_state(ref.state_dicts(), seed=1)
+        ref = eager.load_state(ref.state_dicts(), seed=1)
+        step = comp.compile_step(state)
+        r = np.random.default_rng(0)
+        x_a, x_b = (torch.from_numpy(r.uniform(-1, 1, (2, 64, 64, 3)).astype(
+            np.float32)).to(cuda) for _ in range(2))
+        for i in range(4):
+            # each draws its z from its own generator, seeded alike
+            ref, want = eager.train_step(ref, x_a, x_b)
+            state, got = step(state, x_a, x_b)
+            for k in want:
+                assert torch.equal(got[k], want[k].float()), (i, k)
+        assert sum(c.replays for c, _ in step.calls.values()) == 3
+        a, b = state.snapshot(), ref.snapshot()
+        assert chip_smoke.payload_diff(a, b) == []
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+@pytest.mark.parametrize("variant", ["dis_shared", "member_chunks"])
+def test_captured_step_after_a_sample_reads_the_live_weights(cuda, variant):
+    """The fakes of a no-grad generator forward (``dis_shared``, member
+    chunks) read the engines' derived weights (phase-packed 7x7, dilated
+    6x6) from the blocks' cache: a ``sample`` between the warm-up and the
+    capture, and after every replay, leaves an eager entry that the graph
+    must neither freeze nor read after the next sample frees it. Four
+    replays, each step and each sample bit-equal to an eager trainer's."""
+    raw = {**chip_smoke.REDUCED, "compute_dtype": "bfloat16"}
+    if variant == "dis_shared":
+        raw["z_mode"] = "dis_shared"
+    else:
+        raw["gen_member_chunks"] = 2
+    cfg = Config.from_dict(raw)
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager = CouncilTrainer(cfg, device=cuda)
+        ref = eager.init_state(seed=0)
+        comp = CouncilTrainer(cfg, device=cuda)
+        state = comp.load_state(ref.state_dicts(), seed=1)
+        ref = eager.load_state(ref.state_dicts(), seed=1)
+        step = comp.compile_step(state)
+        r = np.random.default_rng(3)
+        x_a, x_b = (torch.from_numpy(r.uniform(-1, 1, (2, 64, 64, 3)).astype(
+            np.float32)).to(cuda) for _ in range(2))
+        z = torch.from_numpy(r.standard_normal(
+            (cfg.council.council_size, 2, cfg.gen.style_dim)).astype(
+            np.float32))
+        for i in range(5):
+            ref, want = eager.train_step(ref, x_a, x_b)
+            state, got = step(state, x_a, x_b)
+            for k in want:
+                assert torch.equal(got[k], want[k].float()), (i, k)
+            # the sample's z is given, so the steps' z streams stay alike
+            got_s = comp.sample(state, x_a, z=z)[0]
+            want_s = eager.sample(ref, x_a, z=z)[0]
+            assert torch.equal(got_s, want_s), i
+        assert sum(c.replays for c, _ in step.calls.values()) == 4
+        assert chip_smoke.payload_diff(state.snapshot(), ref.snapshot()) == []
+    finally:
+        torch.backends.cudnn.deterministic = False
