@@ -89,24 +89,36 @@ Phases, in order; any failure raises and exits non-zero:
    ``councilx_torch.tools.quant_quality``'s ``compare`` against the
    unquantized bf16 path, held to the JAX package's bar.
 11. multi-gpu (``[multi-gpu]``, last): the ``councilx_torch.parallel``
-   layouts. In a real NCCL process group of one rank on ``cuda:0``
-   (``file://`` store under ``build/``), ``DataParallelTrainer`` and
-   ``CouncilShardTrainer`` (D = 1, K = 1) each take 2 train steps at the
-   headline config (cuDNN in its deterministic mode for the phase), bit for
-   bit ``CouncilTrainer``'s from the same weights, batch and z (every
-   parameter, buffer, Adam moment and metric), with phase 6's launch
-   invariants and each one's ms per step beside ``CouncilTrainer``'s. Then
-   the flagship serving model over several devices, each layout
-   bit-equal to the one-device calls at the same per-shard bucket and
-   timed through the engine (img/s): ``ShardedTranslator`` at D = 2 in
+   layouts, each on its captured route (``compile_step``; one graph per
+   device) beside its eager one. In a real NCCL process group of one rank
+   on ``cuda:0`` (``file://`` store under ``build/``), ``CouncilTrainer``
+   takes 6 eager headline steps (cuDNN in its deterministic mode for the
+   phase); ``DataParallelTrainer`` and ``CouncilShardTrainer`` (D = 1,
+   K = 1) each take 6 eager steps and, from the same weights, batch and z,
+   2 eager calls and 4 replays of ``compile_step`` with an eager sample
+   and snapshot between two replays (the loop's collectives on the
+   communicators the graphs use): every parameter, buffer, Adam moment,
+   metric, sample and snapshot bit for bit ``CouncilTrainer``'s, with
+   phase 6's launch invariants over the eager calls and the capture; ms
+   per step on both routes, CUDA API calls per captured step (profiled as
+   in ``[graphs]``), peak memory and capture seconds. Then the flagship
+   serving model over several devices, each layout bit-equal to the
+   one-device calls at the same per-shard bucket, its captured call (one
+   graph per device) bit-equal to its eager call on two inputs with the
+   first result unchanged by the second call, both calls profiled, and
+   its engine's img/s on both routes: ``ShardedTranslator`` at D = 2 in
    ``quant: none`` and ``w8a8_static`` (Q1 and Q2 launched on this path),
    ``MemberShardedTranslator`` at K = 2 and K = 4; over distinct cards
    where the machine has them, else over ``cuda:0`` named D or K times.
    With 2 or more cards, ``MULTI_LAYOUTS`` (D = 2, K = 2; with 4 cards
-   also D = 2 x K = 2 and K = 4) run as spawned NCCL ranks, 2 headline
-   steps each against the one-process step on ``cuda:0`` at the CPU tests'
-   data-parallel tolerance, with img/s; the ``[multi-gpu]`` line names the
-   layouts run and the ones this machine has too few cards for.
+   also D = 2 x K = 2 and K = 4) run as spawned NCCL ranks: 2 eager
+   headline steps against the one-process step on ``cuda:0`` at the CPU
+   tests' data-parallel tolerance, then the compiled step bit-equal to 6
+   eager steps on every rank, img/s on both routes beside the world-1
+   step's; K = 2 also runs ``train.loop`` on the compiled step with
+   sample sheets and snapshots between replays. The ``[multi-gpu]`` lines
+   name the trainers and layouts run captured and the ones this machine
+   has too few cards for, and the phase's seconds.
 12. complete (``[complete]``, run after phase 8, in its directory, before
    phase 11): the JAX package's last features (:func:`phase_complete`).
    (a) ``remat_stages``: 2 headline steps bit-equal to the plain step's
@@ -178,6 +190,7 @@ last is ``{"ok": true, "device": {...}}``.
 """
 
 import copy
+import faulthandler
 import json
 import os
 import subprocess
@@ -219,13 +232,15 @@ from councilx_torch.ops.instance_norm import (
 from councilx_torch.ops.quant import (conv_int8, conv_int8_reference,
                                       quantize_act, quantize_act_reference,
                                       quantize_weights)
+from councilx_torch.parallel import multihost
 from councilx_torch.parallel.council_shard import CouncilShardTrainer
 from councilx_torch.parallel.mesh import (DataParallelTrainer,
                                           make_member_mesh, make_mesh)
 from councilx_torch.tools import export_pt
 from councilx_torch.tools.calibrate_quant import calibrate
+from councilx_torch.train import loop as train_loop
 from councilx_torch.train.loop import make_trainer
-from councilx_torch.train.trainer import CouncilTrainer
+from councilx_torch.train.trainer import GROUPS, CouncilTrainer, group_params
 
 # configs/soak_256_council4.yaml, the flagship serving model
 FLAGSHIP = {
@@ -286,9 +301,18 @@ REDUCED = {
 MULTI_LAYOUTS = (("D=2", 2, 1), ("K=2", 2, 2), ("D=2xK=2", 4, 2),
                  ("K=4", 4, 4))
 MULTI_STEPS = 2
-# phase 11's world-1 trainers: steps timed after the MULTI_STEPS checked
+# phase 11's steps after the MULTI_STEPS eager ones (the compiled route's
+# replays; the eager route's timed steps)
 MULTI_TIMED = 4
 MULTI_RTOL, MULTI_ATOL, MULTI_PARAM_TOL = 2e-3, 1e-4, 5e-4
+# the K=2 layout's train loop on the compiled step: sample sheets and
+# snapshots (collectives of the council shards) between replays
+LOOP_STEPS = 4
+LOOP_CADENCE = {"log_iter": 1, "image_save_iter": 2, "image_display_iter": 2,
+                "snapshot_save_iter": 2}
+# a spawned rank's time limit, its layout's steps, captures and loop
+# included (a minute or two when nothing hangs)
+SPAWN_LIMIT_S = 300
 # phase 11's serving layouts: (name, data shards, member shards)
 SERVE_LAYOUTS = (("ShardedTranslator D=2", 2, 1),
                  ("MemberShardedTranslator K=2", 1, 2),
@@ -2432,58 +2456,145 @@ def max_param_diff(got: dict, want: dict, off: int) -> float:
     return worst
 
 
+def _route_run(trainer, x_a, x_b, compiled: bool, z_sample,
+                first_path=None) -> dict:
+    """MULTI_STEPS + MULTI_TIMED headline steps of ``trainer`` from
+    ``init_state(0)``: eagerly, or one eager step and then the compiled
+    step (its eager warm-up call, the capture, replays); after step
+    MULTI_STEPS + 2 an eager sample (z given) and snapshot, the loop's
+    collectives between two replays. -> metrics and host ms per step, the
+    launches of the eager calls and the capture, the final snapshot, the
+    sample, peak memory, the state and the compiled step. With
+    ``first_path``: the parameters after step 1 saved there."""
+    state = trainer.init_state(seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step_fn = trainer.train_step
+    out = {"metrics": [], "ms": [], "step": None}
+    for i in range(MULTI_STEPS + MULTI_TIMED):
+        if compiled and i == 1:
+            step_fn = out["step"] = trainer.compile_step(state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, x_a, x_b)
+        torch.cuda.synchronize()
+        out["ms"].append(1e3 * (time.perf_counter() - t0))
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        if first_path and i == 0:
+            torch.save({"params": state.state_dicts()}, first_path)
+        if i == MULTI_STEPS:
+            # the eager calls and the capture; a replay calls no wrapper,
+            # and the sample below launches forwards of its own
+            out["launches"] = _snapshot()
+        if i == MULTI_STEPS + 1:
+            out["sample"] = trainer.sample(state, x_a, z=z_sample)[0].cpu()
+            out["mid_snapshot"] = trainer.snapshot(state)
+    out["payload"] = trainer.snapshot(state)
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["state"] = state
+    return out
+
+
+def state_bytes(state) -> int:
+    """The bytes of a TrainState's parameters and Adam moments."""
+    return sum(t.numel() * t.element_size() for grp in GROUPS
+               for t in group_params(getattr(state, grp))
+               + getattr(state, f"opt_{grp}").mu
+               + getattr(state, f"opt_{grp}").nu)
+
+
 def multi_train_world1(card_str: str, ref_path: str) -> list:
-    """Phase 11's training: CouncilTrainer, then DataParallelTrainer and
-    CouncilShardTrainer (D = 1, K = 1) in the NCCL group of one rank, 2
-    steps each, bit-equal, then MULTI_TIMED more whose median ms per step
-    is printed; saves the reference's first step (params and both steps'
-    metrics) to ``ref_path`` for the spawned layouts."""
+    """Phase 11's training: CouncilTrainer's MULTI_STEPS + MULTI_TIMED
+    eager steps; then DataParallelTrainer and CouncilShardTrainer (D = 1,
+    K = 1) in the NCCL group of one rank, each as many eager steps and,
+    from the same weights, batch and z, MULTI_STEPS eager calls and the
+    compiled step's replays (:func:`_route_run`): every metric,
+    parameter, buffer and Adam moment, the sample and the snapshot taken
+    between replays bit-equal to the same trainer's eager steps and to
+    CouncilTrainer's; the launches of the eager calls and the capture;
+    eager and captured ms per step, CUDA API calls per captured step
+    (profiled as ``[graphs]`` profiles them), peak memory and capture
+    seconds. Saves the reference's first step (params and the checked
+    steps' metrics) to ``ref_path`` for the spawned layouts."""
     cfg = Config.from_dict(HEADLINE)
     x_a, x_b = headline_batch("cuda")
-    ref = None
-    runs = []
+    z_sample = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        (N_MEMBERS, BATCH, cfg.gen.style_dim)).astype(np.float32))
+    ref = _route_run(CouncilTrainer(cfg, device="cuda"), x_a, x_b, False,
+                      z_sample, first_path=ref_path)
+    torch.save({**torch.load(ref_path, weights_only=True),
+                "metrics": ref["metrics"][:MULTI_STEPS]}, ref_path)
+    gib = state_bytes(ref.pop("state")) / 2 ** 30
+    check_train_launches(ref["launches"], MULTI_STEPS + 1,
+                         "CouncilTrainer")
+    runs = [("CouncilTrainer", float(np.median(ref["ms"][MULTI_STEPS:])))]
+    log(f"[multi-gpu] CouncilTrainer: {MULTI_STEPS + MULTI_TIMED} eager "
+        f"headline steps, the reference; ms per step "
+        f"{[round(v, 6) for v in ref['ms']]}; its TrainState's parameters "
+        f"and Adam moments {gib:.6g} GiB (each trainer below frees its "
+        f"state before the next one's run) [{card_str}]")
     for name, make in (
-            ("CouncilTrainer", lambda: CouncilTrainer(cfg, device="cuda")),
             ("DataParallelTrainer", lambda: DataParallelTrainer(
                 cfg, make_mesh(1), device="cuda")),
             ("CouncilShardTrainer", lambda: CouncilShardTrainer(
                 cfg, make_mesh(1, always_2d=True), device="cuda"))):
-        trainer = make()
-        state = trainer.init_state(seed=0)
-        reset_counts()
-        state, first, ms1 = host_steps(trainer, state, x_a, x_b, 1)
-        if ref is None:
-            torch.save({"params": state.state_dicts()}, ref_path)
-        state, second, ms2 = host_steps(trainer, state, x_a, x_b,
-                                        MULTI_STEPS - 1)
-        check_train_launches(_snapshot(), MULTI_STEPS, name)
-        metrics = first + second
-        if not all(np.isfinite(list(m.values())).all() for m in metrics):
-            raise AssertionError(f"{name}: non-finite metrics {metrics}")
-        payload = trainer.snapshot(state)
-        state, _, timed = host_steps(trainer, state, x_a, x_b, MULTI_TIMED)
-        del trainer, state
-        torch.cuda.empty_cache()
-        if ref is None:
-            ref = {"payload": payload, "metrics": metrics}
-            torch.save({**torch.load(ref_path, weights_only=True),
-                        "metrics": metrics}, ref_path)
-        else:
-            bad = payload_diff(payload, ref["payload"])
-            if bad or metrics != ref["metrics"]:
+        got = {}
+        for route in ("eager", "captured"):
+            trainer = make()
+            run = _route_run(trainer, x_a, x_b, route == "captured",
+                              z_sample)
+            state = run.pop("state")
+            check_train_launches(run["launches"], MULTI_STEPS + 1,
+                                 f"{name} {route}")
+            for key in ("payload", "mid_snapshot"):
+                bad = payload_diff(run[key], ref[key])
+                if bad:
+                    raise AssertionError(
+                        f"{name} {route} (NCCL world 1): {key} is not "
+                        f"CouncilTrainer's eager one: {len(bad)} tensors "
+                        f"differ {bad[:4]}")
+            if run["metrics"] != ref["metrics"] or not torch.equal(
+                    run["sample"], ref["sample"]):
                 raise AssertionError(
-                    f"{name} (NCCL world 1) is not CouncilTrainer's step: "
-                    f"{len(bad)} tensors differ {bad[:4]}; metrics equal "
-                    f"{metrics == ref['metrics']}")
-        runs.append((name, float(np.median(timed))))
-        log(f"[multi-gpu] {name}: {MULTI_STEPS} headline steps"
-            + ("" if name == "CouncilTrainer" else
-               ", parameters, buffers, Adam moments and metrics bit-equal "
-               "to CouncilTrainer's")
-            + ", launch invariants held; ms per step "
-            f"{[round(v, 6) for v in ms1 + ms2]}, then {MULTI_TIMED} "
-            f"more: median {np.median(timed):.6g} ms "
-            f"(min {min(timed):.6g}, max {max(timed):.6g}) [{card_str}]")
+                    f"{name} {route} (NCCL world 1): metrics equal "
+                    f"{run['metrics'] == ref['metrics']}, sample equal "
+                    f"{torch.equal(run['sample'], ref['sample'])}")
+            step_fn = run.pop("step") or trainer.train_step
+            if route == "captured":
+                run["captures"] = [round(v, 6) for v in
+                                   step_fn.capture_seconds.values()]
+                run["replays"] = sum(c.replays for c, _ in
+                                     step_fn.calls.values())
+            if route == "captured":
+                # the eager step's API calls: [graphs]'s profile of
+                # CouncilTrainer's, plus the collectives' launches
+                run["profile"] = route_profile(
+                    lambda: step_fn(state, x_a, x_b), 1)
+            got[route] = run
+            del trainer, state, step_fn, run
+        # the graphs' pool went with the compiled step: give it back
+        torch.cuda.empty_cache()
+        eager, graph = got["eager"], got["captured"]
+        e_ms = float(np.median(eager["ms"][MULTI_STEPS:]))
+        g_ms = float(np.median(graph["ms"][MULTI_STEPS + 1:]))
+        runs.append((name, e_ms, g_ms))
+        log(f"[multi-gpu] {name} (NCCL world 1): {MULTI_STEPS} eager "
+            f"calls then {graph['replays']} replays of compile_step "
+            f"(captures s {graph['captures']}), and "
+            f"{MULTI_STEPS + MULTI_TIMED} eager steps: every metric, "
+            f"parameter, buffer and Adam moment, the sample and the "
+            f"snapshot between replays bit-equal to each other and to "
+            f"CouncilTrainer's eager steps; launch invariants held (eager "
+            f"calls and the capture); ms per step eager "
+            f"{[round(v, 6) for v in eager['ms']]}, captured "
+            f"{[round(v, 6) for v in graph['ms']]}: median {e_ms:.6g} vs "
+            f"{g_ms:.6g} ms; CUDA API launch calls per captured step "
+            f"{graph['profile']['api_launches']:.6g}; peak memory eager "
+            f"{eager['peak'] / 2 ** 30:.6g} GiB, captured "
+            f"{graph['peak'] / 2 ** 30:.6g} GiB [{card_str}]")
+        log_route("train", f"{name} step captured", graph["profile"],
+                  card_str, phase="multi-gpu")
     return runs
 
 
@@ -2507,10 +2618,52 @@ def engine_ips(engine, images, reps: int) -> float:
     return len(futures) / (time.perf_counter() - t0)
 
 
+def engine_routes_ips(tr, params, images, all_members: bool,
+                      reps: int) -> dict:
+    """Requests per second through an engine over ``tr`` on each route:
+    eager (``graphs`` set off, as an A/B of the default) and captured."""
+    out = {}
+    for route in ("eager", "captured"):
+        engine = BatchingEngine(tr, params, (HW, HW), max_batch=BATCH,
+                                max_delay_ms=200.0, all_members=all_members)
+        engine.graphs = route == "captured"
+        engine.start()
+        try:
+            engine.warmup()
+            out[route] = engine_ips(engine, images, reps)
+        finally:
+            engine.stop()
+    return out
+
+
+def hold_sharded_call(tr, method: str, params, x, z, rng, where: str):
+    """The layout's captured call at bucket BATCH (one graph per device)
+    on ``(x, z)`` and on fresh inputs, each bit-equal to the eager call;
+    the first result kept across the second call unchanged. -> the call
+    and its capture seconds."""
+    call = tr.captured(method, params, BATCH, (HW, HW))
+    kept = call(torch.from_numpy(x), torch.from_numpy(z))
+    first = getattr(tr, method)(params, x, z)
+    x2 = rng.integers(0, 256, x.shape, dtype=np.uint8)
+    z2 = rng.standard_normal(z.shape).astype(np.float32)
+    second = call(torch.from_numpy(x2), torch.from_numpy(z2))
+    if not torch.equal(second, getattr(tr, method)(params, x2, z2)):
+        raise AssertionError(f"{where}: the replay differs from the eager "
+                             f"call")
+    if not torch.equal(kept, first):
+        raise AssertionError(f"{where}: the first replay's result differs "
+                             f"from the eager call, or changed at the "
+                             f"next call")
+    return call, call.capture_seconds
+
+
 def multi_serve(card_str: str) -> list:
     """Phase 11's serving: each layout of SERVE_LAYOUTS (and D = 2 under
     w8a8_static) bit-equal to the one-device calls at the same per-shard
-    bucket, then its engine's img/s at bucket BATCH."""
+    bucket; its captured call (one graph per device) bit-equal to its
+    eager call on two inputs with the first result kept unchanged; both
+    routes profiled (API calls per call); then its engine's img/s at
+    bucket BATCH, eager and captured."""
     cfg = Config.from_dict(FLAGSHIP)
     one = Translator(cfg, device="cuda")
     gens = one.init_members(N_MEMBERS, seed=0)
@@ -2563,6 +2716,7 @@ def multi_serve(card_str: str) -> list:
                 gens, x[i * n:(i + 1) * n], z=z[i * n:(i + 1) * n],
                 member=0).to(got.device) for i in range(d)])
             params, all_members = members[0], False
+            method = "translate_u8io_device"
         else:
             tr = MemberShardedTranslator(qcfg, make_member_mesh(
                 k, devices=devices))
@@ -2571,6 +2725,7 @@ def multi_serve(card_str: str) -> list:
             got = tr.translate_all_u8io_device(members, x, z)
             want = ref.translate_all_u8io_device(gens, x, z).to(got.device)
             params, all_members = members, True
+            method = "translate_all_u8io_device"
         if not torch.equal(got, want):
             diff = (got.int() - want.int()).abs()
             raise AssertionError(f"{name}: differs from the one-device "
@@ -2578,67 +2733,124 @@ def multi_serve(card_str: str) -> list:
         if quant != "none" and (q1 < 1 or q2 < 1):
             raise AssertionError(f"{name}: Q1/Q2 launches {q1}/{q2}")
         del gens, ref
-        engine = BatchingEngine(tr, params, (HW, HW), max_batch=BATCH,
-                                max_delay_ms=200.0, all_members=all_members)
-        engine.start()
-        try:
-            engine.warmup()
-            ips = engine_ips(engine, x, reps=8 if k == 1 else 2)
-        finally:
-            engine.stop()
+        call, cap_s = hold_sharded_call(tr, method, params, x, z, rng, name)
+        xt, zt = torch.from_numpy(x).pin_memory(), torch.from_numpy(z)
+        prof = {"eager": route_profile(
+            lambda: getattr(tr, method)(params, xt, zt), GRAPH_PROFILED),
+            "captured": route_profile(lambda: call(xt, zt), GRAPH_PROFILED)}
+        del call
+        ips = engine_routes_ips(tr, params, x, all_members,
+                                reps=8 if k == 1 else 2)
         tr.close()
-        del tr, members, params, engine
+        del tr, members, params
         torch.cuda.empty_cache()
-        images = ips * (N_MEMBERS if all_members else 1)
+        per = N_MEMBERS if all_members else 1
         names = ",".join(str(dv) for dv in devices)
-        out.append((name, ips, images))
+        out.append((name, ips["captured"], ips["captured"] * per))
         log(f"[multi-gpu] {name} over [{names}]: bit-equal to the "
             f"one-device calls at bucket {BATCH // d} per shard"
             + (f" (Q1 {q1}, Q2 {q2} launches in the call)"
                if quant != "none" else "")
-            + f"; engine at bucket {BATCH}: {ips:.6g} requests/s = "
-            f"{images:.6g} images/s [{card_str}]")
+            + f"; captured ({d * k} graphs, capture {cap_s:.6g} s) "
+            f"bit-equal to the eager call on two inputs, the first result "
+            f"kept unchanged by the next call; CUDA API launch calls per "
+            f"call eager {prof['eager']['api_launches']:.6g}, captured "
+            f"{prof['captured']['api_launches']:.6g}; engine at bucket "
+            f"{BATCH}: eager {ips['eager']:.6g} requests/s = "
+            f"{ips['eager'] * per:.6g} images/s, captured "
+            f"{ips['captured']:.6g} requests/s = "
+            f"{ips['captured'] * per:.6g} images/s [{card_str}]")
+        for route, r in prof.items():
+            log_route("serve", f"{name} call (host x, z) {route}", r,
+                      card_str, phase="multi-gpu")
     return out
 
 
 def _multi_rank(rank: int, world: int, council: int, store: str,
-                ref_path: str, out_path: str) -> None:
-    """One spawned NCCL rank of a MULTI_LAYOUTS layout: MULTI_STEPS
-    headline steps through ``train.loop.make_trainer``, then MULTI_TIMED
-    more; rank 0 writes the checked steps' metrics, every step's ms and
-    the first step's largest parameter difference to the one-process
-    step (over all ranks)."""
+                ref_path: str, out_path: str, loop_dir) -> None:
+    """One spawned NCCL rank of a MULTI_LAYOUTS layout (trainer from
+    ``train.loop.make_trainer``): MULTI_STEPS + MULTI_TIMED headline steps
+    eagerly, then as many from the same weights with the compiled step
+    (:func:`_route_run`, its eager sample and snapshot between replays).
+    Rank 0 writes the eager checked steps' metrics, every step's ms on
+    both routes, the first step's largest parameter difference to the
+    one-process step and the ranks where the compiled run's state,
+    metrics or sample differ from the eager run's (over all ranks). With
+    ``loop_dir``: then ``train.loop.train`` for LOOP_STEPS on synthetic
+    data with sample sheets and snapshots on the compiled step, whose
+    summary rank 0 writes too."""
+    # a rank that hangs (a collective no peer meets) prints every thread's
+    # stack and exits, so the phase fails rather than run to its limit
+    faulthandler.dump_traceback_later(SPAWN_LIMIT_S, exit=True)
     torch.cuda.set_device(rank)
+    # the main process's settings (a spawned rank starts from defaults)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     dist.init_process_group("nccl", init_method=f"file://{store}",
                             rank=rank, world_size=world)
     try:
         cfg = Config.from_dict({**HEADLINE, "num_devices": world,
                                 "council_parallel": council})
-        trainer = make_trainer(cfg, device=f"cuda:{rank}")
-        state = trainer.init_state(seed=0)
         x_a, x_b = headline_batch(f"cuda:{rank}")
-        b = BATCH // trainer.data_size
-        rows = slice(trainer.data_index * b, (trainer.data_index + 1) * b)
-        state, first, ms1 = host_steps(trainer, state, x_a[rows],
-                                       x_b[rows], 1)
-        diff = max_param_diff(state.state_dicts(), torch.load(
-            ref_path, weights_only=True)["params"], trainer.member_offset)
-        diffs = [None] * world
-        dist.all_gather_object(diffs, diff)
-        state, second, ms2 = host_steps(trainer, state, x_a[rows],
-                                        x_b[rows], MULTI_STEPS - 1)
-        state, _, timed = host_steps(trainer, state, x_a[rows], x_b[rows],
-                                     MULTI_TIMED)
+        runs = {}
+        for route in ("eager", "captured"):
+            trainer = make_trainer(cfg, device=f"cuda:{rank}")
+            b = BATCH // trainer.data_size
+            rows = slice(trainer.data_index * b, (trainer.data_index + 1) * b)
+            z_sample = torch.from_numpy(np.random.default_rng(13)
+                                        .standard_normal(
+                                            (N_MEMBERS, b,
+                                             cfg.gen.style_dim))
+                                        .astype(np.float32))
+            first = f"{out_path}.{rank}.first.pt"
+            run = _route_run(trainer, x_a[rows], x_b[rows],
+                             route == "captured", z_sample,
+                             first_path=first if route == "eager" else None)
+            # the graphs go now: destroying the process group would wait
+            # for every graph that holds one of its collectives
+            run.pop("step")
+            run["local"] = run.pop("state").snapshot()
+            if route == "eager":
+                run["param_diff"] = max_param_diff(
+                    torch.load(first, weights_only=True)["params"],
+                    torch.load(ref_path, weights_only=True)["params"],
+                    trainer.member_offset)
+            runs[route] = run
+            del trainer, run
+            torch.cuda.empty_cache()
+        eager, graph = runs["eager"], runs["captured"]
+        bad = (payload_diff(graph["local"], eager["local"])
+               + (["metrics"] if graph["metrics"] != eager["metrics"] else [])
+               + ([] if torch.equal(graph["sample"], eager["sample"])
+                  else ["sample"]))
+        got = [None] * world
+        dist.all_gather_object(got, (eager["param_diff"], bad))
+        summary = None
+        if loop_dir:
+            summary = train_loop.train(
+                Config.from_dict({**HEADLINE, "num_devices": world,
+                                  "council_parallel": council,
+                                  **LOOP_CADENCE}), output_path=loop_dir, run_name="loop", synthetic=True,
+                max_steps=LOOP_STEPS, device=f"cuda:{rank}")
         if rank == 0:
-            torch.save({"metrics": first + second, "ms": ms1 + ms2,
-                        "timed": timed, "param_diff": max(diffs)}, out_path)
+            torch.save({"metrics": eager["metrics"][:MULTI_STEPS],
+                        "ms": eager["ms"], "graph_ms": graph["ms"],
+                        "param_diff": max(d for d, _ in got),
+                        "differ": {r: b for r, (_, b) in enumerate(got)
+                                   if b}, "loop": summary}, out_path)
     finally:
-        dist.destroy_process_group()
+        multihost.shutdown()
+        faulthandler.cancel_dump_traceback_later()
 
 
-def multi_train_spawned(card_str: str, ref_path: str, tmp: str) -> list:
+def multi_train_spawned(card_str: str, ref_path: str, tmp: str,
+                        world1: dict) -> list:
     """Each MULTI_LAYOUTS layout this machine has the cards for, as spawned
-    NCCL ranks, against the one-process reference."""
+    NCCL ranks: the eager steps against the one-process reference, the
+    compiled step bit-equal to the eager one; img/s beside the one-process
+    captured step's (``world1``: CouncilShardTrainer's median ms at world
+    1). The K=2 layout also runs the train loop on the compiled step."""
     ref = torch.load(ref_path, weights_only=True)
     out = []
     for name, world, council in MULTI_LAYOUTS:
@@ -2646,8 +2858,9 @@ def multi_train_spawned(card_str: str, ref_path: str, tmp: str) -> list:
             continue
         store = os.path.join(tmp, f"store-{world}-{council}")
         res = os.path.join(tmp, f"multi-{world}-{council}.pt")
-        mp.spawn(_multi_rank, args=(world, council, store, ref_path, res),
-                 nprocs=world, join=True)
+        loop_dir = os.path.join(tmp, "loop") if name == "K=2" else None
+        mp.spawn(_multi_rank, args=(world, council, store, ref_path, res,
+                                    loop_dir), nprocs=world, join=True)
         got = torch.load(res, weights_only=True)
         for step, (m, w) in enumerate(zip(got["metrics"], ref["metrics"])):
             for key in w:
@@ -2658,16 +2871,37 @@ def multi_train_spawned(card_str: str, ref_path: str, tmp: str) -> list:
         if got["param_diff"] > MULTI_PARAM_TOL:
             raise AssertionError(f"{name}: parameters {got['param_diff']} "
                                  f"from the one-process step")
-        ms = float(np.median(got["timed"]))
-        ips = BATCH / (ms / 1e3)
+        if got["differ"]:
+            raise AssertionError(f"{name}: the compiled step is not the "
+                                 f"eager step on ranks {got['differ']}")
+        e_ms = float(np.median(got["ms"][MULTI_STEPS:]))
+        g_ms = float(np.median(got["graph_ms"][MULTI_STEPS + 1:]))
+        ips = {"eager": BATCH / (e_ms / 1e3), "captured": BATCH / (g_ms / 1e3)}
         out.append((name, ips))
-        log(f"[multi-gpu] {name} on {world} cards: {MULTI_STEPS} headline "
-            f"steps within rtol {MULTI_RTOL} / atol {MULTI_ATOL} of the "
-            f"one-process metrics, parameters within "
-            f"{got['param_diff']:.3g} after step 1; ms per step "
-            f"{[round(v, 6) for v in got['ms']]}, then {MULTI_TIMED} more: "
-            f"median {ms:.6g} ms (min {min(got['timed']):.6g}, max "
-            f"{max(got['timed']):.6g}) = {ips:.6g} img/s [{card_str}]")
+        loop_line = ""
+        if got["loop"] is not None:
+            lp = got["loop"]
+            if not lp["graphs"] or lp["step"] != LOOP_STEPS:
+                raise AssertionError(f"{name} loop: {lp}")
+            loop_line = (f"; train.loop on the compiled step, {LOOP_STEPS} "
+                         f"steps with sample sheets and snapshots "
+                         f"({LOOP_CADENCE}) between replays on every rank: "
+                         f"ended at step {lp['step']}, captures s "
+                         f"{[round(v, 6) for v in lp['capture_seconds']]}, "
+                         f"{lp['images_per_sec']:.6g} img/s over its last "
+                         f"log window")
+        log(f"[multi-gpu] {name} on {world} cards: {MULTI_STEPS} eager "
+            f"headline steps within rtol {MULTI_RTOL} / atol {MULTI_ATOL} "
+            f"of the one-process metrics, parameters within "
+            f"{got['param_diff']:.3g} after step 1; the compiled step "
+            f"({MULTI_STEPS} eager calls, then replays, a sample and a "
+            f"snapshot between two) bit-equal to the eager step on every "
+            f"rank; ms per step eager {[round(v, 6) for v in got['ms']]}, "
+            f"captured {[round(v, 6) for v in got['graph_ms']]}: median "
+            f"{e_ms:.6g} vs {g_ms:.6g} ms = {ips['eager']:.6g} vs "
+            f"{ips['captured']:.6g} img/s, {ips['eager'] / world1['eager']:.4g}x"
+            f" / {ips['captured'] / world1['captured']:.4g}x the one-process "
+            f"step's img/s on its route{loop_line} [{card_str}]")
     return out
 
 
@@ -2678,12 +2912,15 @@ def phase_multi_gpu(card_str: str) -> None:
     skipped = [name for name, world, _ in MULTI_LAYOUTS if count < world]
     serve_on = ("distinct cards where the machine has them, else cuda:0 "
                 "named D or K times")
-    log(f"[multi-gpu] device_count={count}; layouts run: NCCL world 1 "
-        f"DataParallelTrainer and CouncilShardTrainer(D=1,K=1); serving "
-        f"{', '.join(n for n, _, _ in SERVE_LAYOUTS)} and D=2 w8a8_static "
-        f"over {serve_on}; spawned NCCL ranks: {', '.join(ran) or 'none'}"
+    log(f"[multi-gpu] device_count={count}; captured (compile_step) and "
+        f"eager: NCCL world 1 DataParallelTrainer and CouncilShardTrainer"
+        f"(D=1,K=1); serving {', '.join(n for n, _, _ in SERVE_LAYOUTS)} "
+        f"and D=2 w8a8_static over {serve_on}, one graph per device; "
+        f"spawned NCCL ranks: {', '.join(ran) or 'none'}"
+        + (" (K=2 also through train.loop)" if "K=2" in ran else "")
         + (f"; not run: {', '.join(skipped)} (each needs its ranks' "
            f"cards, this machine has {count})" if skipped else ""))
+    t0 = time.perf_counter()
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     torch.cuda.set_device(0)
@@ -2694,12 +2931,19 @@ def phase_multi_gpu(card_str: str) -> None:
             rank=0, world_size=1)
         try:
             ref_path = os.path.join(tmp, "reference.pt")
-            multi_train_world1(card_str, ref_path)
+            runs = multi_train_world1(card_str, ref_path)
+            t1 = time.perf_counter()
             multi_serve(card_str)
+            log(f"[multi-gpu] world-1 trainers {t1 - t0:.6g} s, serving "
+                f"{time.perf_counter() - t1:.6g} s")
         finally:
-            dist.destroy_process_group()
+            multihost.shutdown()
             torch.backends.cudnn.deterministic = deterministic
-        multi_train_spawned(card_str, ref_path, tmp)
+        # CouncilShardTrainer at world 1, the spawned layouts' yardstick
+        e_ms, g_ms = dict((r[0], r[1:]) for r in runs)["CouncilShardTrainer"]
+        multi_train_spawned(card_str, ref_path, tmp, {
+            "eager": BATCH / (e_ms / 1e3), "captured": BATCH / (g_ms / 1e3)})
+    log(f"[multi-gpu] phase {time.perf_counter() - t0:.6g} s")
 
 
 # phase 12: steps after the 2 bit-compared ones, warm and timed; the
@@ -3042,8 +3286,9 @@ def route_profile(fn, calls: int) -> dict:
     raise AssertionError("the profiler recorded no device event")
 
 
-def log_route(tag: str, what: str, r: dict, card_str: str) -> None:
-    log(f"[graphs] {tag} {what}: wall {r['wall_ms']:.6g} ms, enqueue "
+def log_route(tag: str, what: str, r: dict, card_str: str,
+              phase: str = "graphs") -> None:
+    log(f"[{phase}] {tag} {what}: wall {r['wall_ms']:.6g} ms, enqueue "
         f"{r['enqueue_ms']:.6g} ms, kernels {r['kernel_ms']:.6g} ms, "
         f"{r['device_ops']:.6g} device ops and {r['api_launches']:.6g} "
         f"CUDA API launch calls per call, device busy (some op running) "

@@ -8,18 +8,18 @@ serving-scale counterpart of the reference's one-image-at-a-time
   bucket of a power-of-two ladder (1, 2, 4, ... max_batch), so the device
   only ever sees a few batch shapes; :meth:`BatchingEngine.warmup` builds
   each at startup so no request pays for it.
-* **Captured buckets.** On a card (one-device translators) each
-  bucket's device call is a CUDA graph
-  (``Translator.captured``), the counterpart of the JAX engine's one
-  executable per bucket: warm-up captures every bucket, and a batch is
-  copied into its bucket's static input and replayed. A replay overwrites
-  its output while the readback thread may still be reading the previous
-  batch's, so each replay's output is copied out (one device-to-device
-  copy of the batch's uint8 result, ordered after the replay on the
-  dispatch stream) rather than served from a second graph per bucket,
-  which would hold a second pool of activations. Sharded translators
-  (their per-device threads) and CPU translators run eagerly
-  (``BatchingEngine.graphs``).
+* **Captured buckets.** On a card each bucket's device call is captured
+  (``Translator.captured``: a CUDA graph; a sharded translator's
+  ``captured``: one graph per device, ``ShardedCall``), the counterpart of
+  the JAX engine's one executable per bucket: warm-up captures every
+  bucket, and a batch is copied into its bucket's static input and
+  replayed. A replay overwrites its output while the readback thread may
+  still be reading the previous batch's, so each replay's output is
+  copied out (one device-to-device copy of the batch's uint8 result,
+  ordered after the replay on the dispatch stream; a sharded call's
+  gather is that copy) rather than served from a second graph per
+  bucket, which would hold a second pool of activations. CPU translators
+  run eagerly (``BatchingEngine.graphs``).
 * **Deadline-based coalescing.** The worker takes the first queued request,
   then drains the queue until either ``max_batch`` requests are in hand or
   ``max_delay_ms`` has elapsed since the first arrival — the standard
@@ -51,6 +51,9 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from councilx_torch.utils.graphs import capturable
+
 
 def _set_result(future: Future, value) -> None:
     """Resolve a future, tolerating a concurrent client cancel(): done()
@@ -165,10 +168,10 @@ class BatchingEngine:
                              "members: build the engine with "
                              "all_members=True (or use ShardedTranslator "
                              "for one member over several devices)")
-        # the route, by what the translator is: each bucket captured on a
-        # one-device CUDA translator; eager on the CPU and for the sharded
-        # translators, which launch from one host thread per device
-        self.graphs = translator.device.type == "cuda" and not axes
+        # the route, by the translator's device: each bucket captured on a
+        # card (a sharded translator: one graph per device), eager on the
+        # CPU
+        self.graphs = capturable(translator.device)
         self.replays = 0        # captured calls replayed (graphs)
         if all_members:
             self._method = ("translate_all_u8io_device" if wire_format == "u8"
@@ -262,8 +265,8 @@ class BatchingEngine:
             self._device_call(x, z).cpu()
 
     def captured(self, bucket: int):
-        """The bucket's captured device call (``Translator.captured``),
-        captured at first use."""
+        """The bucket's captured device call (the translator's
+        ``captured``), captured at first use."""
         return self.translator.captured(self._method, self.params, bucket,
                                          self.image_hw)
 
@@ -391,11 +394,13 @@ class BatchingEngine:
             # thread may meet a batch on the dispatch thread): the buckets
             # share one memory pool and a bucket its static inputs. The
             # output is copied out: the next replay overwrites it while
-            # this batch may still be read back
+            # this batch may still be read back (a sharded call's gather
+            # has copied it already)
             with self._graph_lock:
                 self.replays += 1
-                return self.captured(x.shape[0])(
-                    torch.from_numpy(x), torch.from_numpy(z)).clone()
+                out = self.captured(x.shape[0])(torch.from_numpy(x),
+                                                torch.from_numpy(z))
+                return out if self.translator.axis_names else out.clone()
         if self.all_members:
             if self.wire_format == "u8":
                 return self.translator.translate_all_u8io_device(

@@ -28,7 +28,9 @@ splits the batch over a list of devices (each holds every member),
 (``parallel.mesh.make_member_mesh``). Each device's share is launched from
 its own host thread, so their host time overlaps, and the results come
 together on the first device in order. A list may name one card more than
-once (a one-card machine runs these paths so).
+once (a one-card machine runs these paths so). On a card their
+``captured`` holds one captured call per device (:class:`ShardedCall`),
+the counterpart of the JAX package's jitted ``shard_map`` calls.
 """
 
 from __future__ import annotations
@@ -58,6 +60,14 @@ Members = Union[AdaINGen, Sequence[AdaINGen]]
 CAPTURED = ("translate_u8io_device", "translate_u8_device",
             "translate_all_u8io_device", "translate_all_u8_device",
             "translate", "translate_all_members")
+
+
+def _member_ids(params) -> tuple:
+    """The ids of every module in ``params`` (a module, or nested tuples
+    and lists of them): a captured call's key."""
+    if isinstance(params, (list, tuple)):
+        return tuple(i for p in params for i in _member_ids(p))
+    return (id(params),)
 
 
 def _u8_from_unit(out: torch.Tensor) -> torch.Tensor:
@@ -202,7 +212,7 @@ class Translator:
                              f"{CAPTURED}")
         members = tuple(params) if isinstance(params, (list, tuple)) \
             else (params,)
-        key = (method, tuple(id(g) for g in members), batch, tuple(hw),
+        key = (method, _member_ids(members), batch, tuple(hw),
                self.dtype, self.quant, self.cfg.quant_scope)
         hit = self._captured.get(key)
         if hit is not None:
@@ -358,10 +368,49 @@ class Translator:
             members, _unit_from_u8(self._to_device(x_u8)), z)
 
 
+class ShardedCall:
+    """One serving method of a sharded translator at one global batch, as
+    one captured call per device (``Translator.captured`` of that device's
+    translator, :meth:`_MultiDevice.captured`). ``call(x, z)``, host or
+    device tensors of the global shapes: each device's share of ``x`` and
+    ``z`` is copied from the host (pinned) straight into that device's
+    static buffers, every device replays from its own thread, and the
+    results are gathered on the first device. The gather copies, so the
+    result is the caller's: the next call's replays overwrite the graphs'
+    outputs, not it (where the list names one card twice, moving an output
+    to the first device is no copy, and only the concatenation's is)."""
+
+    def __init__(self, translator: "_MultiDevice", method: str, params,
+                 calls: Mapping[int, CapturedCall], name: str):
+        self.translator, self.method, self.params = translator, method, params
+        self.calls, self.name = calls, name
+
+    @property
+    def capture_seconds(self) -> float:
+        """The devices' captures' seconds, summed (they run in turn)."""
+        return sum(c.capture_seconds for c in self.calls.values())
+
+    @property
+    def replays(self) -> int:
+        return min(c.replays for c in self.calls.values())
+
+    def __call__(self, x, z):
+        tr = self.translator
+        x, z = torch.as_tensor(x), torch.as_tensor(z)
+        if tr.device.type == "cuda":
+            x, z = (t.pin_memory() if t.device.type == "cpu"
+                    and not t.is_pinned() else t for t in (x, z))
+        return tr._run(self.method, self.params, x, z, self.calls)
+
+
 class _MultiDevice(Translator):
     """One :class:`Translator` per device, and one host thread per device
     that launches its share. A member is a tuple of its copies, one per
-    device that holds it."""
+    device that holds it. A subclass says how a call splits
+    (:meth:`_shares`) and how the shares' results come together
+    (:meth:`_assemble`), and which methods of ``CAPTURED`` it serves."""
+
+    served: Tuple[str, ...] = ()
 
     def __init__(self, cfg: Config, devices: Sequence, quant_stats=None):
         devices = [torch.device(d) for d in devices]
@@ -400,9 +449,68 @@ class _MultiDevice(Translator):
                 "ladder guarantees this; pad manual calls)")
         return x.shape[0] // self.data_size
 
+    def _shares(self, params, x, z) -> list:
+        """``(device index, members, x rows, z)`` of each device's share
+        of a call."""
+        raise NotImplementedError
+
+    def _assemble(self, outs: list):
+        """The shares' results (in :meth:`_shares`' order) -> the call's."""
+        raise NotImplementedError
+
+    def _run(self, method: str, params, x, z,
+             calls: Optional[Mapping[int, CapturedCall]] = None):
+        """``method`` on every device's share, each from its device's
+        thread -> the assembled result; with ``calls`` each share replays
+        its device's captured call instead of running eagerly."""
+        jobs = []
+        for i, gens, xs, zs in self._shares(params, x, z):
+            if calls is None:
+                fn = (lambda t=self._per_device[i], gens=gens, xs=xs, zs=zs:
+                      getattr(t, method)(gens, xs, zs))
+            else:
+                fn = lambda c=calls[i], xs=xs, zs=zs: c(xs, zs)
+            jobs.append((i, fn))
+        return self._assemble(self._launch(jobs))
+
     def _gather(self, outs: Sequence[torch.Tensor], dim: int = 0
                 ) -> torch.Tensor:
+        """The outputs concatenated on the first device: always a new
+        tensor, even from one output on that device."""
         return torch.cat([o.to(self.device) for o in outs], dim=dim)
+
+    def captured(self, method: str, params, batch: int,
+                 hw: Tuple[int, int]) -> ShardedCall:
+        """``method`` (one of ``served``) of ``params`` at a global
+        ``batch`` of ``hw`` images as a :class:`ShardedCall`: each device's
+        translator captures its share (``Translator.captured``: one eager
+        run on its capture stream, then the capture), one device after the
+        other, each entered from the pool's thread. Kept, keyed by
+        (method, members, batch, hw), until new members are loaded; the
+        calls replay from one thread at a time, as one translator's."""
+        if method not in self.served:
+            raise ValueError(f"captured: {type(self).__name__} serves "
+                             f"{self.served}, not {method!r}")
+        key = (method, _member_ids(params), batch, tuple(hw))
+        hit = self._captured.get(key)
+        if hit is not None:
+            return hit[1]
+        h, w = hw
+        x = torch.zeros((batch, h, w, 3), dtype=torch.uint8 if "u8io" in
+                        method else torch.float32)
+        z = torch.zeros((self.cfg.council.council_size,)
+                        * (method == "translate_all_members")
+                        + (batch, self.cfg.gen.style_dim))
+        calls = {}
+        for i, gens, xs, _ in self._shares(params, x, z):
+            t = self._per_device[i]
+            calls[i] = self._launch([(i, lambda t=t, gens=gens, n=len(xs):
+                                      t.captured(method, gens, n, hw))])[0]
+        self._captured[key] = (params, ShardedCall(
+            self, method, params, calls,
+            f"{type(self).__name__} {method} at batch {batch} x {h}x{w} "
+            f"over {len(calls)} devices"))
+        return self._captured[key][1]
 
     def close(self) -> None:
         self._pool.shutdown(wait=True)
@@ -418,9 +526,10 @@ class ShardedTranslator(_MultiDevice):
     numbers are those of the one-device call at the slice's batch.
 
     A member (:meth:`load_members`) is a tuple of its copies, one per
-    device."""
+    device; ``captured`` takes one member."""
 
     axis_names = ("data",)
+    served = ("translate_u8io_device", "translate_u8_device", "translate")
 
     def __init__(self, cfg: Config, devices: Sequence, quant_stats=None):
         super().__init__(cfg, devices, quant_stats=quant_stats)
@@ -428,40 +537,42 @@ class ShardedTranslator(_MultiDevice):
 
     def load_members(self, state_dicts: Sequence[Mapping[str, torch.Tensor]]
                      ) -> List[Tuple[AdaINGen, ...]]:
-        """Each member's copies, one per device (strict loads)."""
+        """Each member's copies, one per device (strict loads). Drops the
+        captured calls of earlier members."""
+        self._captured.clear()
         per = [t.load_members(state_dicts) for t in self._per_device]
         return list(zip(*per))
 
-    def _split(self, method: str, params, x, z, member):
-        reps = self._pick(params, member)
+    def _shares(self, reps, x, z) -> list:
         n = self._check_batch(x)
-        return self._launch([
-            (i, lambda i=i, t=t: getattr(t, method)(
-                reps[i], x[i * n:(i + 1) * n], z=z[i * n:(i + 1) * n]))
-            for i, t in enumerate(self._per_device)])
+        return [(i, reps[i], x[i * n:(i + 1) * n], z[i * n:(i + 1) * n])
+                for i in range(self.data_size)]
+
+    def _assemble(self, outs: list):
+        if isinstance(outs[0], tuple):
+            return tuple(None if parts[0] is None else self._gather(parts)
+                         for parts in zip(*outs))
+        return self._gather(outs)
 
     def translate(self, params, x, z=None,
                   rng: Optional[torch.Generator] = None,
                   member: Optional[int] = None):
         z = self._host_z(z, (x.shape[0], self.cfg.gen.style_dim), rng)
-        outs = self._split("translate", params, x, z, member)
-        images = self._gather([o[0] for o in outs])
-        return images, (self._gather([o[1] for o in outs])
-                        if self.focus else None)
+        return self._run("translate", self._pick(params, member), x, z)
 
     def translate_u8_device(self, params, x, z=None,
                             rng: Optional[torch.Generator] = None,
                             member: Optional[int] = None) -> torch.Tensor:
         z = self._host_z(z, (x.shape[0], self.cfg.gen.style_dim), rng)
-        return self._gather(self._split("translate_u8_device", params, x,
-                                        z, member))
+        return self._run("translate_u8_device", self._pick(params, member),
+                         x, z)
 
     def translate_u8io_device(self, params, x_u8, z=None,
                               rng: Optional[torch.Generator] = None,
                               member: Optional[int] = None) -> torch.Tensor:
         z = self._host_z(z, (x_u8.shape[0], self.cfg.gen.style_dim), rng)
-        return self._gather(self._split("translate_u8io_device", params,
-                                        x_u8, z, member))
+        return self._run("translate_u8io_device", self._pick(params, member),
+                         x_u8, z)
 
     def encode_style(self, params, x, member: Optional[int] = None
                      ) -> torch.Tensor:
@@ -483,6 +594,9 @@ class MemberShardedTranslator(_MultiDevice):
     A member (:meth:`load_members`) is a tuple of its copies, one per data
     row. Quantized ensemble serving is refused: the activation scales are
     calibrated per member."""
+
+    served = ("translate_all_u8io_device", "translate_all_u8_device",
+              "translate_all_members")
 
     def __init__(self, cfg: Config, grid, quant_stats=None):
         axes = tuple(grid.axis_names)
@@ -511,53 +625,55 @@ class MemberShardedTranslator(_MultiDevice):
 
     def load_members(self, state_dicts: Sequence[Mapping[str, torch.Tensor]]
                      ) -> List[Tuple[AdaINGen, ...]]:
-        """Member j's copies, one per data row d, on device (d, j // m)."""
+        """Member j's copies, one per data row d, on device (d, j // m).
+        Drops the captured calls of earlier members."""
+        self._captured.clear()
         return [tuple(self._per_device[self._cell(d, j // self.m)]
                       .load_members([sd])[0]
                       for d in range(self.data_size))
                 for j, sd in enumerate(state_dicts)]
 
-    def _cells(self, method: str, members, x, z, z_members: bool) -> list:
-        """``method(gens, x_slice, z_slice)`` on every cell -> the (N, B,
-        ...) results, gathered in member order."""
+    def _shares(self, members, x, z) -> list:
+        """Cell (d, c), in device order: members ``[c*m, (c+1)*m)``' row-d
+        copies on rows d of ``x``; ``z`` (B, S) is shared by the members,
+        a (N, B, S) ``z`` is sliced by member too."""
         n = self._check_batch(x)
+        m = self.m
+        out = []
+        for d in range(self.data_size):
+            rows = slice(d * n, (d + 1) * n)
+            for c in range(self.k):
+                gens = [members[j][d] for j in range(c * m, (c + 1) * m)]
+                zs = (z[c * m:(c + 1) * m, rows] if z.ndim == 3
+                      else z[rows])
+                out.append((self._cell(d, c), gens, x[rows], zs))
+        return out
 
-        def job(d, c):
-            gens = [members[j][d] for j in range(c * self.m,
-                                                 (c + 1) * self.m)]
-            zs = (z[c * self.m:(c + 1) * self.m, d * n:(d + 1) * n]
-                  if z_members else z[d * n:(d + 1) * n])
-            t = self._per_device[self._cell(d, c)]
-            return lambda: getattr(t, method)(gens, x[d * n:(d + 1) * n], zs)
-
-        cells = [(d, c) for d in range(self.data_size)
-                 for c in range(self.k)]
-        outs = self._launch([(self._cell(d, c), job(d, c))
-                             for d, c in cells])
-        by_cell = dict(zip(cells, outs))
-
-        def assemble(pick):
+    def _assemble(self, outs: list):
+        """The cells' (m, n, ...) results -> (N, B, ...) in member order."""
+        def grid(pick):
             return self._gather(
-                [self._gather([pick(by_cell[d, c])
+                [self._gather([pick(outs[self._cell(d, c)])
                                for d in range(self.data_size)], dim=1)
                  for c in range(self.k)])
-        return assemble
+
+        if isinstance(outs[0], tuple):
+            return tuple(None if part is None else
+                         grid(lambda o, i=i: o[i])
+                         for i, part in enumerate(outs[0]))
+        return grid(lambda o: o)
 
     def translate_all_u8_device(self, members, x, z) -> torch.Tensor:
-        return self._cells("translate_all_u8_device", members, x, z,
-                           False)(lambda o: o)
+        return self._run("translate_all_u8_device", members, x, z)
 
     def translate_all_u8io_device(self, members, x_u8, z) -> torch.Tensor:
-        return self._cells("translate_all_u8io_device", members, x_u8, z,
-                           False)(lambda o: o)
+        return self._run("translate_all_u8io_device", members, x_u8, z)
 
     def translate_all_members(self, members, x, z=None,
                               rng: Optional[torch.Generator] = None):
         z = self._host_z(z, (self.cfg.council.council_size, x.shape[0],
                              self.cfg.gen.style_dim), rng)
-        assemble = self._cells("translate_all_members", members, x, z, True)
-        images = assemble(lambda o: o[0])
-        return images, assemble(lambda o: o[1]) if self.focus else None
+        return self._run("translate_all_members", members, x, z)
 
 
 def denormalize_to_uint8(img: np.ndarray) -> np.ndarray:

@@ -24,7 +24,11 @@ carry the collectives:
 The z codes are the global draw (N, B_global, style_dim), sliced to the
 rank's (members, rows) block, so the step is the one-process step at the
 same global batch; at D = 1 each member's parameters and Adam moments are
-bit for bit the one-process step's. :meth:`CouncilShardTrainer.snapshot`
+bit for bit the one-process step's. On a card the step is captured with
+these collectives (``compile_step``, as in ``parallel/mesh.py``): the
+shadow council discriminators that take the gathered parameters are built
+by the eager warm-up call, so a captured step only copies into them.
+:meth:`CouncilShardTrainer.snapshot`
 gathers the members to rank 0 in the one-process layout, so a snapshot
 resumes under any layout.
 """
@@ -131,8 +135,9 @@ class CouncilShardTrainer(DataParallelTrainer):
         """The state gathered to rank 0 in the one-process layout (every
         member's parameters, buffers and Adam moments in global member
         order, on the CPU), None on every other rank. A collective of the
-        council shards of data row 0; the other rows hold replicas of the
-        same members."""
+        council shards of data row 0, eager between compiled steps on the
+        communicator the captured gathers use; the other rows hold replicas
+        of the same members."""
         if self.mesh.data_index != 0:
             return None
         primary = dist.get_rank() == 0

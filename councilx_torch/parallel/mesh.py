@@ -149,13 +149,16 @@ class DataParallelTrainer(CouncilTrainer):
     ``train_step(state, x_a, x_b, zs=None)`` takes this rank's rows of the
     global batch; the z codes are the global draw (every rank draws it from
     the same generator, or the caller passes it as the one-process step
-    takes it) sliced to this rank's rows."""
+    takes it) sliced to this rank's rows.
+
+    On a card :meth:`compile_step` captures the step with its collectives
+    (the counterpart of the JAX trainer's jitted step): every tensor they
+    read or write is made inside the step (the flat buckets, the gathered
+    parts, the flags), so inside a graph it lives in the graph's pool, and
+    each group's NCCL communicator is made by the eager warm-up call, at
+    its first collective, before any capture."""
 
     axes = ("data",)
-    # the step's hooks run NCCL collectives, which are not captured
-    # (CouncilTrainer.compile_step): this trainer, and the shard trainer
-    # below, train eagerly
-    capturable = False
     wrong_grid = ("DataParallelTrainer takes a 1-D ('data',) grid; for a "
                   "('data','council') grid use councilx_torch.parallel."
                   "council_shard.CouncilShardTrainer")
@@ -171,6 +174,28 @@ class DataParallelTrainer(CouncilTrainer):
                              f"{dist.get_backend()}")
         self.mesh = mesh
         self.data_index, self.data_size = mesh.data_index, mesh.data_size
+
+    def layout(self) -> str:
+        return (f"{type(self).__name__} at (data {self.mesh.data_index}, "
+                f"council {self.mesh.council_index}) of a D="
+                f"{self.mesh.data_size} x K={self.mesh.council_size} grid, "
+                f"rank {dist.get_rank()} of {dist.get_world_size()} "
+                f"({dist.get_backend()})")
+
+    def _agree_on_capture(self, key: tuple) -> None:
+        """Every rank captures the same step graph at the same step, or
+        their captured collectives would pair with the wrong ones: the step
+        key gathered over the world (eagerly, before the capture) must be
+        the same on every rank."""
+        code = torch.tensor([int(v) for part in key for v in
+                             (part if isinstance(part, tuple) else (part,))],
+                            dtype=torch.int64, device=self.device)
+        parts = [torch.empty_like(code) for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, code)
+        keys = [tuple(p.tolist()) for p in parts]
+        if len(set(keys)) > 1:
+            raise RuntimeError(f"{self.layout()}: the ranks would capture "
+                               f"different step graphs, keys {keys}")
 
     def _mean_data(self, flat: torch.Tensor) -> torch.Tensor:
         """Mean of ``flat`` over the data axis, in place."""

@@ -20,6 +20,7 @@ GPU over ``torch.distributed``, the PyTorch idiom:
 
 from __future__ import annotations
 
+import gc
 import os
 from typing import List, Optional
 
@@ -149,6 +150,10 @@ def allgather_int(value: int) -> List[int]:
 
 
 def shutdown() -> None:
-    """Leave the process group, if this process joined one."""
+    """Leave the process group, if this process joined one. Destroying an
+    NCCL communicator waits until every CUDA graph that captured one of
+    its collectives is freed (a compiled step's), so unreachable ones are
+    collected first."""
     if dist.is_initialized():
+        gc.collect()
         dist.destroy_process_group()

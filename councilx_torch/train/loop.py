@@ -11,13 +11,14 @@ port:
   (``data/ondevice.py::draw_crops``, keyed by the absolute step and the
   global row) and pins them. It makes no other CUDA call: the main thread
   issues the non-blocking host-to-device copies and the augment;
-* on a card the one-process step runs as captured CUDA graphs
+* on a card the step of every trainer runs as captured CUDA graphs
   (``CouncilTrainer.compile_step``), the counterpart of the JAX loop's
   ``_jit_step``: the loop's first step of each shape runs eagerly as the
   warm-up, the next is captured, and every later one replays. The
-  multi-process trainers (``parallel/``), whose steps run NCCL
-  collectives, step eagerly, chosen by their type; the run prints which
-  route it took;
+  multi-process trainers (``parallel/``) capture their NCCL collectives
+  with the step; their snapshots and sample sheets stay eager collectives
+  between the replays, issued by every rank at the same steps. A CPU
+  device steps eagerly; the run prints which route it took;
 * the metrics stay on the device between log points; at each ``log_iter``
   they are stacked and read back with one copy;
 * snapshots (``ckpt/manager.py``) copy the state to the host before the
@@ -68,6 +69,7 @@ from councilx_torch.parallel import multihost
 from councilx_torch.parallel.council_shard import CouncilShardTrainer
 from councilx_torch.parallel.mesh import DataParallelTrainer, make_mesh
 from councilx_torch.train.trainer import CouncilTrainer
+from councilx_torch.utils import graphs as cuda_graphs
 from councilx_torch.utils.images import write_html, write_sample_sheet
 from councilx_torch.utils.logging import MetricLogger, prepare_sub_folder
 
@@ -143,10 +145,10 @@ def train(cfg: Config, output_path: str = "outputs", run_name: str = "run",
     current step, writes a final snapshot and returns with
     ``interrupted=True``. Ignored when more than one process trains.
 
-    The step runs as captured CUDA graphs on a card with a one-process
-    trainer, eagerly on a CPU device the caller asked for and for the
-    multi-process trainers: the summary's ``graphs``, and the seconds each
-    capture took in ``capture_seconds``.
+    The step runs as captured CUDA graphs on a card, whatever the
+    trainer, and eagerly on a CPU device the caller asked for: the
+    summary's ``graphs``, and the seconds each capture took in
+    ``capture_seconds``.
 
     Multi-process: every rank calls this (see the module docstring); the
     summary's ``snapshot_bytes`` is rank 0's alone (None elsewhere)."""
@@ -185,13 +187,11 @@ def train(cfg: Config, output_path: str = "outputs", run_name: str = "run",
         state = trainer.init_state(seed)
     # the step's route; a resumed run restores before this, so the graphs
     # are captured on the restored state's tensors
-    graphs = dev.type == "cuda" and trainer.capturable
-    why = ("a one-process trainer on a card" if graphs else
-           f"{type(trainer).__name__} on {dev.type}")
+    graphs = cuda_graphs.capturable(dev)
     step_fn = trainer.compile_step(state) if graphs else trainer.train_step
     if primary:
         print(f"train step: {'captured CUDA graphs' if graphs else 'eager'}"
-              f" ({why})", flush=True)
+              f" ({type(trainer).__name__} on {dev})", flush=True)
 
     bs = multihost.local_batch_size(cfg.batch_size, trainer.data_size)
     train_a, train_b, test_a, test_b = get_all_data_loaders(
@@ -322,6 +322,12 @@ def train(cfg: Config, output_path: str = "outputs", run_name: str = "run",
                 held["write_wait"] += t1 - t0
                 copy_s.append(time.perf_counter() - t1)
     finally:
+        # a compiled step's graphs hold the NCCL communicators their
+        # collectives use, and destroying a process group waits for every
+        # such graph to be freed: drop the step here, on an error too
+        capture_seconds = (list(step_fn.capture_seconds.values())
+                           if graphs else [])
+        step_fn = None
         if prof is not None:
             _stop_profile(prof, dev, run_dir)
         if pool is not None:
@@ -343,8 +349,7 @@ def train(cfg: Config, output_path: str = "outputs", run_name: str = "run",
     return {"step": step, "start_step": start_step,
             "images_per_sec": images_per_sec, "interrupted": interrupted,
             "graphs": graphs,
-            "capture_seconds": (list(step_fn.capture_seconds.values())
-                                if graphs else []),
+            "capture_seconds": capture_seconds,
             "native": train_a.native and train_b.native,
             "stage_wait_seconds": held["stage_wait"],
             "snapshot_copy_seconds": copy_s,

@@ -25,7 +25,8 @@ this step on its slice of the layout -- the members ``[member_offset,
 member_offset + n_local)`` and the rows of data shard ``data_index`` of
 ``data_size`` -- with the collectives in five hooks that are identities
 here: :meth:`_gather_members`, :meth:`_council_dis`, :meth:`_reduce_grads`,
-:meth:`_all_ok` and :meth:`_reduce_metrics`.
+:meth:`_all_ok` and :meth:`_reduce_metrics`. On a card they run inside the
+compiled step's graphs too.
 
 Compiled step (:meth:`CouncilTrainer.compile_step`): the counterpart of the
 JAX trainer's ``jax.jit(self._step, donate_argnums=(0,))``. The eager step
@@ -177,11 +178,6 @@ class CouncilTrainer:
     """Builds the council's modules and optimizers and runs the train step
     on ``device``: the card unless the caller asks for another device (the
     CPU tests pass ``device="cpu"``)."""
-
-    # the step can be captured as a CUDA graph (compile_step); the
-    # multi-process trainers (parallel/), whose hooks run NCCL collectives,
-    # say False and train eagerly
-    capturable = True
 
     def __init__(self, cfg: Config, device="cuda"):
         if cfg.dis.norm in ("sn", "bn"):
@@ -602,6 +598,14 @@ class CouncilTrainer:
         """This process's step metrics -> the step's."""
         return metrics
 
+    def layout(self) -> str:
+        """This process's place in the training layout, for messages."""
+        return f"{type(self).__name__}, one process on {self.device}"
+
+    def _agree_on_capture(self, key: tuple) -> None:
+        """Before the capture of step ``key``: check that every process
+        captures it now (one process: nothing to check)."""
+
     def _cdis_ratio(self) -> int:
         return max(1, self.cfg.council.council_dis_relative_iteration)
 
@@ -817,16 +821,13 @@ class CouncilTrainer:
 
     def compile_step(self, state: TrainState) -> "CompiledStep":
         """The step of ``state`` as captured CUDA graphs (counterpart of the
-        JAX trainer's ``jax.jit(self._step, donate_argnums=(0,))``): call
-        it as :meth:`train_step`. A CUDA trainer of one process only; the
-        first call of each step shape runs eagerly (a real step) on the
-        capture's side stream, the next captures, and every call replays.
-        See :class:`CompiledStep`."""
+        JAX trainers' ``jax.jit(self._step, donate_argnums=(0,))``): call
+        it as :meth:`train_step`. Any trainer on a card, the multi-process
+        ones with their collectives inside the graphs; the first call of
+        each step shape runs eagerly (a real step) on the capture's side
+        stream, the next captures, and every call replays. See
+        :class:`CompiledStep`."""
         require_cuda(self.device, "compile_step")
-        if not self.capturable:
-            raise ValueError(
-                f"compile_step: {type(self).__name__} runs NCCL collectives "
-                "in its step, which are not captured; it trains eagerly")
         return CompiledStep(self, state)
 
     # ------------------------------------------------------------------
@@ -882,7 +883,19 @@ class CompiledStep:
     not overwrite them.
 
     The graphs are tied to this state's tensors: another ``TrainState``
-    (a restored one, say) needs its own compiled step."""
+    (a restored one, say) needs its own compiled step.
+
+    Multi-process trainers (``parallel/``): the graphs hold the step's NCCL
+    collectives, so every rank must capture and replay the same graph at
+    the same step. The key is the same on every rank: the sharded loader
+    drops the last partial batch (``data/loader.py``), so every rank's
+    rows have the global batch's shape at every step, and the
+    ``every_kth`` branch is read from the step count on the host. The
+    ranks check it before each capture (``_agree_on_capture``). The
+    warm-up call makes every communicator the step uses (PyTorch makes a
+    group's at its first collective). The eager collectives between steps
+    (snapshots, sample sheets) share those communicators; every rank
+    issues them in the same order, between the same replays."""
 
     def __init__(self, trainer: CouncilTrainer, state: TrainState):
         self.trainer, self.state = trainer, state
@@ -924,7 +937,9 @@ class CompiledStep:
             return torch.stack([v.detach().reshape(()).float()
                                 for v in metrics.values()])
 
-        return self.ctx.capture(step_fn, flat, f"train step {key}"), names
+        t._agree_on_capture(key)
+        return self.ctx.capture(step_fn, flat,
+                                f"{t.layout()}: train step {key}"), names
 
     @property
     def capture_seconds(self) -> Dict[tuple, float]:

@@ -19,7 +19,10 @@ thread replays in turn. Its recipe is PyTorch's:
    attributes (once per thread, autograd's included), the conv wgrad's
    per-stream ticket counters (``ops/conv3x3.py``, keyed by this stream),
    the reflect-pad index cache (``nn/blocks.py::_pad_index``), the
-   derived-weight and int8-weight caches, cuDNN's and cuBLAS's handles.
+   derived-weight and int8-weight caches, cuDNN's and cuBLAS's handles,
+   and each process group's NCCL communicator (PyTorch makes it at the
+   group's first collective; inside a capture a collective is recorded on
+   the group's stream, joined to the capture's, like any kernel).
    A tensor first made inside a capture lives in the graph's pool and
    holds no value until a replay, so an eager call after the capture would
    read garbage from such a cache.
@@ -46,10 +49,15 @@ from typing import Any, Callable, Sequence
 import torch
 
 
+def capturable(device) -> bool:
+    """Whether work on ``device`` is captured: CUDA only."""
+    return torch.device(device).type == "cuda"
+
+
 def require_cuda(device, what: str) -> torch.device:
     """``device`` as a ``torch.device``; a ValueError unless it is CUDA."""
     device = torch.device(device)
-    if device.type != "cuda":
+    if not capturable(device):
         raise ValueError(f"{what}: CUDA graphs capture CUDA work, and this "
                          f"runs on {device}; run it eagerly there")
     return device

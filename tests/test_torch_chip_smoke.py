@@ -534,3 +534,16 @@ def test_graphs_phase_runs_after_the_engines_and_before_the_train_cli():
     ([(0, 5), (2, 4), (3, 8), (10, 11)], 9.0), ([(4, 6), (0, 5)], 6.0)])
 def test_union_us_counts_overlaps_once(spans, want):
     assert chip_smoke.union_us(spans) == want
+
+
+def test_phase_11_loop_samples_and_snapshots_between_replays():
+    """The K=2 layout's train loop on the compiled step: step 1 is the
+    eager warm-up and step 2 the capture (and its replay), so a sample
+    sheet and a snapshot between two replays need a cadence step from 2 to
+    LOOP_STEPS - 1; the last step's snapshot is written too."""
+    between = range(2, chip_smoke.LOOP_STEPS)
+    for key in ("image_save_iter", "image_display_iter",
+                "snapshot_save_iter"):
+        assert any(s % chip_smoke.LOOP_CADENCE[key] == 0 for s in between)
+    assert chip_smoke.LOOP_STEPS % chip_smoke.LOOP_CADENCE[
+        "snapshot_save_iter"] == 0

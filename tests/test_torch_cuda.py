@@ -993,3 +993,125 @@ def test_captured_step_after_a_sample_reads_the_live_weights(cuda, variant):
         assert chip_smoke.payload_diff(state.snapshot(), ref.snapshot()) == []
     finally:
         torch.backends.cudnn.deterministic = False
+
+
+# ---------------------------------------------------------------------------
+# the multi-device routes captured: the NCCL train steps in a world of one
+# rank, and the sharded translators over the card named twice
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("trainer_name", ["DataParallelTrainer",
+                                          "CouncilShardTrainer"])
+def test_world_one_nccl_compiled_steps_are_the_eager_ones(cuda, tmp_path,
+                                                          trainer_name):
+    """chip_smoke's reduced config with the skip-nonfinite gate on (the
+    MIN over the world) in an NCCL group of one rank: one eager warm-up
+    call and three replays of the compiled step, with the graphs' all-
+    reduces and gathers inside, every metric, parameter and Adam moment
+    bit-equal to four eager steps of the same trainer type; between the
+    steps an eager sample and snapshot on the same communicators, equal
+    too."""
+    import torch.distributed as dist
+
+    from councilx_torch.parallel.council_shard import CouncilShardTrainer
+    from councilx_torch.parallel.mesh import DataParallelTrainer, make_mesh
+
+    cfg = Config.from_dict({**chip_smoke.REDUCED, "compute_dtype": "bfloat16",
+                            "skip_nonfinite_updates": True})
+    torch.backends.cudnn.deterministic = True
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        def make():
+            if trainer_name == "DataParallelTrainer":
+                return DataParallelTrainer(cfg, make_mesh(1), device=cuda)
+            return CouncilShardTrainer(cfg, make_mesh(1, always_2d=True),
+                                       device=cuda)
+
+        eager, comp = make(), make()
+        ref = eager.init_state(seed=0)
+        state = comp.load_state(ref.state_dicts(), seed=1)
+        ref = eager.load_state(ref.state_dicts(), seed=1)
+        step = comp.compile_step(state)
+        r = np.random.default_rng(5)
+        x_a, x_b = (torch.from_numpy(r.uniform(-1, 1, (2, 64, 64, 3)).astype(
+            np.float32)).to(cuda) for _ in range(2))
+        z = torch.from_numpy(r.standard_normal(
+            (cfg.council.council_size, 2, cfg.gen.style_dim)).astype(
+            np.float32))
+        for i in range(4):
+            ref, want = eager.train_step(ref, x_a, x_b)
+            state, got = step(state, x_a, x_b)
+            for k in want:
+                assert torch.equal(got[k], want[k].float()), (i, k)
+            assert torch.equal(comp.sample(state, x_a, z=z)[0],
+                               eager.sample(ref, x_a, z=z)[0]), i
+            assert chip_smoke.payload_diff(comp.snapshot(state),
+                                           eager.snapshot(ref)) == [], i
+        assert sum(c.replays for c, _ in step.calls.values()) == 3
+        assert trainer_name in next(iter(step.calls.values()))[0].name
+        # destroying the group waits for the graphs that hold its
+        # collectives
+        del step
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cudnn.deterministic = False
+
+
+@pytest.mark.parametrize("layout", ["D=2", "K=2"])
+def test_sharded_captured_call_is_the_eager_one(cuda, layout):
+    """The flagship serving model (n_res cut to 2) over the card named
+    twice: a sharded translator's captured call at bucket 8 bit-equal to
+    its eager call on two inputs, the first result unchanged by the second
+    call (the gather copies out of the graphs' outputs); then its engine
+    on the captured route returns the eager engine's images."""
+    from councilx_torch.inference.server import BatchingEngine
+    from councilx_torch.inference.translate import (MemberShardedTranslator,
+                                                    ShardedTranslator)
+    from councilx_torch.parallel.mesh import make_member_mesh
+
+    cfg = _serving_cfg()
+    sds = [g.state_dict() for g in Translator(cfg, device="cpu")
+           .init_members(cfg.council.council_size, seed=2)]
+    if layout == "D=2":
+        tr = ShardedTranslator(cfg, [cuda, cuda])
+        params = tr.load_members(sds)[0]
+        method = "translate_u8io_device"
+    else:
+        tr = MemberShardedTranslator(cfg, make_member_mesh(
+            2, devices=[cuda, cuda]))
+        params = tr.load_members(sds)
+        method = "translate_all_u8io_device"
+    call = tr.captured(method, params, 8, (256, 256))
+    r = np.random.default_rng(6)
+    kept = None
+    for _ in range(2):
+        x = r.integers(0, 256, (8, 256, 256, 3), dtype=np.uint8)
+        z = r.standard_normal((8, cfg.gen.style_dim)).astype(np.float32)
+        got = call(torch.from_numpy(x), torch.from_numpy(z))
+        want = getattr(tr, method)(params, x, z)
+        assert torch.equal(got, want)
+        if kept is None:
+            kept, first = got, want.clone()
+    assert torch.equal(kept, first)
+    images = r.integers(0, 256, (16, 256, 256, 3), dtype=np.uint8)
+    outs = {}
+    for graphs in (False, True):
+        engine = BatchingEngine(tr, params, (256, 256), max_batch=8,
+                                max_delay_ms=500.0,
+                                all_members=layout != "D=2")
+        assert engine.graphs
+        engine.graphs = graphs
+        engine.start()
+        try:
+            engine.warmup([8])
+            outs[graphs] = [f.result(timeout=300) for f in
+                            [engine.submit(im, seed=i)
+                             for i, im in enumerate(images)]]
+        finally:
+            engine.stop()
+    for a, b in zip(outs[False], outs[True]):
+        np.testing.assert_array_equal(a, b)
+    tr.close()

@@ -27,13 +27,14 @@ counterpart:
   of ``every_kth``, the metrics packing, the version bump -- with a CPU
   stand-in for the capture context that re-runs the function on the static
   inputs where a card replays its graph: bit-equal to the eager calls;
-* every route that would capture on the CPU raises, and the defaults keep
-  the CPU engine and loop eager.
+* every route that would capture on the CPU raises, the multi-process
+  trainers' too, and the defaults keep the CPU engine and loop eager.
 """
 
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import jax
 import jax.numpy as jnp
@@ -44,12 +45,13 @@ from councilx_torch.inference import translate as translate_mod
 from councilx_torch.inference.server import BatchingEngine
 from councilx_torch.inference.translate import Translator
 from councilx_torch.parallel.council_shard import CouncilShardTrainer
-from councilx_torch.parallel.mesh import DataParallelTrainer
+from councilx_torch.parallel.mesh import DataParallelTrainer, make_mesh
 from councilx_torch.schedules import WeightSchedule
 from councilx_torch.train import trainer as trainer_mod
 from councilx_torch.train.optim import Adam, assign_
 from councilx_torch.train.trainer import GROUPS, CouncilTrainer, group_params
 from councilx_torch.utils.graphs import CaptureContext
+from test_torch_capture_helpers import _CpuContext, use_stand_in
 from test_torch_train_helpers import (LR, Pair, assert_metrics_close, batch,
                                       max_param_diff, raw_config)
 
@@ -189,37 +191,6 @@ def test_train_step_writes_the_state_in_place(guard):
 
 
 # --- the capture protocol, with a CPU stand-in for the capture context ----
-
-
-class _Replayed:
-    """A captured call's stand-in: static inputs, and each replay runs the
-    function on them again (a card replays the captured graph)."""
-
-    def __init__(self, fn, inputs, name):
-        self.fn, self.name = fn, name
-        self.inputs = [t.clone() for t in inputs]
-        self.capture_seconds = 0.0
-        self.replays = 0
-
-    def __call__(self, *inputs):
-        for dst, src in zip(self.inputs, inputs):
-            assert dst.shape == src.shape and dst.dtype == src.dtype
-            dst.copy_(src)
-        self.replays += 1
-        return self.fn(*self.inputs)
-
-
-class _CpuContext:
-    def __init__(self, device, what=""):
-        self.device = torch.device(device)
-        self.runs = 0
-
-    def run(self, fn, *args):
-        self.runs += 1
-        return fn(*args)
-
-    def capture(self, fn, inputs, name):
-        return _Replayed(fn, inputs, name)
 
 
 def _compiled_vs_eager(steps, **over):
@@ -370,10 +341,24 @@ def test_capture_on_the_cpu_raises():
     assert BatchingEngine(tr, gen, (32, 32)).graphs is False
 
 
-def test_multi_process_trainers_are_not_captured():
-    assert CouncilTrainer.capturable
-    assert not DataParallelTrainer.capturable
-    assert not CouncilShardTrainer.capturable
+@pytest.mark.parametrize("trainer_type", [DataParallelTrainer,
+                                          CouncilShardTrainer])
+def test_multi_process_trainers_compile_on_a_card_only(tmp_path,
+                                                       trainer_type):
+    """compile_step takes every trainer type (tests/test_torch_parallel_*
+    drive the multi-process ones over the CPU stand-in), and on a CPU
+    device it raises for them too: here in a gloo world of one rank."""
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, always_2d=trainer_type is CouncilShardTrainer)
+        trainer = trainer_type(Config.from_dict(raw_config()), mesh,
+                               device="cpu")
+        assert "D=1 x K=1 grid, rank 0 of 1 (gloo)" in trainer.layout()
+        with pytest.raises(ValueError, match="compile_step"):
+            trainer.compile_step(trainer.init_state(0))
+    finally:
+        dist.destroy_process_group()
 
 
 def test_train_loop_on_the_cpu_steps_eagerly(tmp_path, capsys):
@@ -387,3 +372,56 @@ def test_train_loop_on_the_cpu_steps_eagerly(tmp_path, capsys):
     assert out["graphs"] is False and out["capture_seconds"] == []
     assert "train step: eager (CouncilTrainer on cpu)" in \
         capsys.readouterr().out
+
+
+@pytest.mark.parametrize("fail", [False, True])
+def test_train_loop_drops_the_compiled_step_when_it_ends(monkeypatch,
+                                                         tmp_path, fail):
+    """A compiled step's graphs hold the NCCL communicators of its
+    collectives, and destroying a process group waits until every such
+    graph is freed: the loop (on the stand-in) drops its compiled step
+    before it returns, and before an error leaves it, whose traceback
+    keeps the loop's frame."""
+    import gc
+    import weakref
+
+    from councilx_torch.train import loop
+
+    use_stand_in(monkeypatch.setattr)
+    made = []
+    compile_step = CouncilTrainer.compile_step
+
+    def recorded(self, state):
+        step = compile_step(self, state)
+        made.append(weakref.ref(step))
+        return step
+
+    monkeypatch.setattr(CouncilTrainer, "compile_step", recorded)
+    if fail:
+        host_metrics, logged = loop._host_metrics, []
+
+        def failing(metrics):
+            logged.append(1)
+            if len(logged) == 2:
+                raise RuntimeError("a failed log")
+            return host_metrics(metrics)
+
+        monkeypatch.setattr(loop, "_host_metrics", failing)
+    cfg = Config.from_dict(raw_config(log_iter=1, image_save_iter=0,
+                                      image_display_iter=0,
+                                      snapshot_save_iter=0))
+    try:
+        out = loop.train(cfg, output_path=str(tmp_path), run_name="c",
+                         synthetic=True, max_steps=3, device="cpu")
+    except RuntimeError as e:
+        assert fail and "a failed log" in str(e)
+        # while the traceback (and with it the loop's frame) is alive; the
+        # stand-in keeps the captured function, a cycle through the step
+        # (a card's graph keeps none), so collect it
+        gc.collect()
+        assert len(made) == 1 and made[0]() is None
+    else:
+        assert not fail and out["graphs"] is True
+        assert len(out["capture_seconds"]) == 1
+        gc.collect()
+        assert len(made) == 1 and made[0]() is None

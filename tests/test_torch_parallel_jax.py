@@ -13,6 +13,11 @@ metric within tests/test_torch_train.py's METRIC_RTOL, every parameter
 within its bound (2 lr per step: Adam turns rounding-noise gradients into
 moves of up to +-lr).
 
+Both axes: the JAX ``CouncilShardTrainer`` on ``make_mesh(4,
+council_parallel=2)`` and the port's on four gloo ranks (D = 2 x K = 2, one
+member and one row each), with ``det_data_reduction`` off and on, the same
+setup and tolerances.
+
 Data parallelism, with the VGG perceptual loss on (``vgg_w: 1``, seeded
 random VGG16 weights in a ``.npz``):
 ``councilx.parallel.mesh.DataParallelTrainer`` on ``make_mesh(2)`` and the
@@ -24,6 +29,7 @@ from types import SimpleNamespace
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 import test_torch_train
@@ -84,6 +90,29 @@ def test_member_sharded_step_matches_the_jax_shard_trainer(tmp_path):
     assert [r["K2"]["layout"] for r in ranks] == [(0, 1, 0, 1),
                                                   (0, 1, 1, 1)]
     assert ranks[1]["K2"]["metrics"] == got["metrics"]
+    assert_metrics_close(jm, got["metrics"],
+                         rtol=test_torch_train.METRIC_RTOL)
+    params = SimpleNamespace(state_dicts=lambda: got["snapshot"]["params"])
+    assert max_param_diff(want, params) <= 2 * LR * STEPS
+
+
+@pytest.mark.parametrize("det", [False, True])
+def test_data_and_member_sharded_step_matches_the_jax_shard_trainer(
+        tmp_path, det):
+    raw = raw_config(det_data_reduction=det)
+    jcfg, cfg = JConfig.from_dict(raw), Config.from_dict(raw)
+    init, x_a, x_b, zs, jm, want = _jax_steps(
+        JShard(jcfg, jmake_mesh(4, council_parallel=2)), jcfg, cfg)
+    given = str(tmp_path / "given.pt")
+    torch.save({"state_dicts": init, "x_a": torch.from_numpy(x_a),
+                "x_b": torch.from_numpy(x_b), "zs": zs}, given)
+    ranks = launch({"scenario": "steps", "runs": [
+        {"name": "D2K2", "raw": raw, "council": 2, "steps": STEPS,
+         "given": given}]}, 4, tmp_path)
+    got = ranks[0]["D2K2"]
+    assert [r["D2K2"]["layout"] for r in ranks] == [
+        (0, 2, 0, 1), (0, 2, 1, 1), (1, 2, 0, 1), (1, 2, 1, 1)]
+    assert all(r["D2K2"]["metrics"] == got["metrics"] for r in ranks)
     assert_metrics_close(jm, got["metrics"],
                          rtol=test_torch_train.METRIC_RTOL)
     params = SimpleNamespace(state_dicts=lambda: got["snapshot"]["params"])

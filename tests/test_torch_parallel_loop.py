@@ -13,7 +13,13 @@ JPEG folders:
 * a snapshot of the two-process run resumes in one process, and a
   one-process snapshot in two processes, both ending there too (at D = 1
   the member-sharded step is the one-process step, bit for bit);
-* both ranks sample the same display batches.
+* both ranks sample the same display batches;
+* on the CPU stand-in of the capture context
+  (tests/test_torch_capture_helpers.py) the loop compiles the step of every
+  trainer type it builds -- one process, the member-sharded and the
+  data-parallel trainer on two ranks -- and ends bit for bit where the
+  eager loop ends, with its sample sheets and snapshots between the
+  compiled steps.
 """
 
 import json
@@ -106,6 +112,44 @@ def runs(tmp_path_factory):
     launch({"scenario": "cli", "argvs": [_argv(one, tmp / "T", 2,
                                                 resume=True)]}, 1, tmp)
     return tmp, ranks
+
+
+@pytest.fixture(scope="module")
+def standin(runs):
+    """The loop on the stand-in: one process, 2 steps (C); two ranks,
+    member-sharded, 4 steps (SC); two ranks, data-parallel, 2 steps on the
+    stand-in (DC) and eagerly (DE). -> the directory, {run: (summary,
+    printed)} of rank 0."""
+    tmp, _ = runs
+    one = str(tmp / "one" / "run.yaml")
+    two = str(tmp / "two" / "run.yaml")
+    dp = _config(tmp / "dp" / "run.yaml", tmp / "data", num_devices=2)
+    first = launch({"scenario": "cli", "standin": [True],
+                    "argvs": [_argv(one, tmp / "C", 2)]}, 1, tmp)[0]
+    ranks = launch({"scenario": "cli", "standin": [True, True, False],
+                    "argvs": [_argv(two, tmp / "SC", 4),
+                              _argv(dp, tmp / "DC", 2),
+                              _argv(dp, tmp / "DE", 2)]}, 2, tmp)
+    out = {"C": (first["summaries"][0], first["printed"][0])}
+    for i, name in enumerate(("SC", "DC", "DE")):
+        out[name] = (ranks[0]["summaries"][i], ranks[0]["printed"][i])
+    return tmp, out
+
+
+@pytest.mark.parametrize("trainer,name,ref,steps", [
+    ("CouncilTrainer", "C", "P", 2), ("CouncilShardTrainer", "SC", "S", 4),
+    ("DataParallelTrainer", "DC", "DE", 2)])
+def test_train_loop_on_the_stand_in_compiles_every_trainer(
+        standin, trainer, name, ref, steps):
+    tmp, out = standin
+    summary, printed = out[name]
+    assert summary["graphs"] is True and len(summary["capture_seconds"]) == 1
+    assert f"train step: captured CUDA graphs ({trainer} on cpu)" in printed
+    for step in range(2, steps + 1, 2):
+        _assert_equal(_payload(tmp / name, step), _payload(tmp / ref, step))
+    if ref == "DE":
+        assert out[ref][0]["graphs"] is False
+        assert f"train step: eager ({trainer} on cpu)" in out[ref][1]
 
 
 def test_two_process_run_files_are_rank_0s(runs):

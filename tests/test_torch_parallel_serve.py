@@ -11,7 +11,13 @@ name the CPU more than once, as a one-card machine names its card.
 * the engine's buckets are multiples of the data size, and it refuses what
   the JAX engine refuses;
 * ``cli.serve.build_engine`` and ``cli.translate`` take
-  ``--data_parallel``/``--member_parallel`` with the JAX CLIs' rules.
+  ``--data_parallel``/``--member_parallel`` with the JAX CLIs' rules;
+* their captured calls (one per device, ``ShardedCall``) over the CPU
+  stand-in of the capture context (tests/test_torch_capture_helpers.py):
+  every method each serves, on two inputs, is its eager call, and the
+  engine routes every bucket through them when its ``graphs`` is set,
+  returning what the eager engine returns: D = 2 in ``none`` and
+  ``w8a8_static``, grids (1, 2), (1, 4) and (2, 2).
 """
 
 import os
@@ -28,10 +34,12 @@ from councilx_torch.cli import translate as translate_cli
 from councilx_torch.config import Config
 from councilx_torch.inference.server import BatchingEngine, _bucket_ladder
 from councilx_torch.inference.translate import (MemberShardedTranslator,
+                                                ShardedCall,
                                                 ShardedTranslator,
                                                 Translator)
-from councilx_torch.parallel.mesh import make_member_mesh
+from councilx_torch.parallel.mesh import local_devices, make_member_mesh
 from councilx_torch.tools.calibrate_quant import calibrate
+from test_torch_capture_helpers import use_stand_in
 
 HW, B, S, N = 32, 4, 3, 4
 RAW = {"gen": {"dim": 8, "mlp_dim": 16, "style_dim": S, "n_downsample": 2,
@@ -293,3 +301,99 @@ def test_translate_cli_shards_each_batch(checkpoint, monkeypatch):
     with pytest.raises(SystemExit, match="not divisible"):
         translate_cli.main(common + ["--batch_size", "3", "--data_parallel",
                                      "2", "--output_folder", "unused"])
+
+
+# the layouts served captured: (D, K, quant); K = 0 is ShardedTranslator
+CAPTURED_LAYOUTS = {"D2-none": (2, 0, "none"),
+                    "D2-w8a8_static": (2, 0, "w8a8_static"),
+                    "grid-1x2": (1, 2, "none"), "grid-1x4": (1, 4, "none"),
+                    "grid-2x2": (2, 2, "none")}
+
+
+def _layout(council, name):
+    """The layout's translator over the CPU named D x K times, its
+    members, and what an engine serves (one member or the council)."""
+    sds, *_, stats = council
+    d, k, quant = CAPTURED_LAYOUTS[name]
+    cfg = _cfg(quant=quant)
+    if k == 0:
+        tr = ShardedTranslator(cfg, local_devices(d, "cpu"), quant_stats=(
+            stats if quant == "w8a8_static" else None))
+        members = tr.load_members(sds)
+        return tr, members, members[1]
+    tr = MemberShardedTranslator(cfg, make_member_mesh(
+        k, devices=local_devices(d * k, "cpu"), data_parallel=d))
+    members = tr.load_members(sds)
+    return tr, members, members
+
+
+@pytest.mark.parametrize("name", sorted(CAPTURED_LAYOUTS))
+def test_sharded_captured_calls_are_the_eager_calls(monkeypatch, council,
+                                                    name):
+    use_stand_in(monkeypatch.setattr)
+    _, x, x_u8, z, zn, _ = council
+    tr, _, params = _layout(council, name)
+    r = np.random.default_rng(4)
+    for method in tr.served:
+        call = tr.captured(method, params, B, (HW, HW))
+        assert isinstance(call, ShardedCall)
+        assert len(call.calls) == len(tr._per_device)
+        kept = None
+        for i in range(2):
+            xi = (x_u8 if "u8io" in method else x) if i == 0 else (
+                r.integers(0, 256, x_u8.shape, dtype=np.uint8)
+                if "u8io" in method else
+                r.uniform(-1, 1, x.shape).astype(np.float32))
+            zi = zn if method == "translate_all_members" else z
+            zi = zi if i == 0 else r.standard_normal(zi.shape).astype(
+                np.float32)
+            got = call(torch.from_numpy(xi), torch.from_numpy(zi))
+            want = getattr(tr, method)(params, xi, zi)
+            got, want = ((got, want) if isinstance(got, tuple)
+                         else ((got,), (want,)))
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+            if i == 0:
+                kept, first = got, tuple(t.clone() for t in got)
+        assert all(torch.equal(a, b) for a, b in zip(kept, first))
+        assert call.replays == 2
+        assert tr.captured(method, params, B, (HW, HW)) is call
+    with pytest.raises(ValueError, match="serves"):
+        tr.captured("translate_u8io_device" if "grid" in name else
+                    "translate_all_u8io_device", params, B, (HW, HW))
+    tr.close()
+
+
+@pytest.mark.parametrize("name", sorted(CAPTURED_LAYOUTS))
+def test_engine_routes_sharded_translators_through_captured(
+        monkeypatch, council, name):
+    """As test_torch_graphs.py's one-device engine test: the captured
+    route, over the stand-in, returns the eager engine's results, and
+    every bucket is one captured call per device."""
+    use_stand_in(monkeypatch.setattr)
+    _, _, x_u8, _, _, _ = council
+    tr, _, params = _layout(council, name)
+    all_members = "grid" in name
+    outs = {}
+    for graphs in (False, True):
+        eng = BatchingEngine(tr, params, (HW, HW), max_batch=4,
+                             max_delay_ms=50.0, all_members=all_members)
+        assert eng.graphs is False
+        eng.graphs = graphs
+        eng.start()
+        try:
+            eng.warmup()
+            outs[graphs] = [f.result(timeout=120) for f in
+                            [eng.submit(x, seed=i)
+                             for i, x in enumerate(x_u8)]]
+        finally:
+            eng.stop()
+    for a, b in zip(outs[False], outs[True]):
+        np.testing.assert_array_equal(a, b)
+    # keyed (method, members, batch, hw): one call per bucket
+    assert sorted(key[2] for key in tr._captured) == eng.buckets
+    calls = [c for _, c in tr._captured.values()]
+    assert sum(c.replays for c in calls) == eng.replays > len(eng.buckets)
+    assert all(len(t._captured) == len(eng.buckets) for t in tr._per_device)
+    tr.load_members(council[0])
+    assert not tr._captured
+    tr.close()

@@ -23,7 +23,15 @@ from the same generator, so it is the one-process step's init, batch and z:
   track the one-process run; the data-axis replicas bit-equal on every rank
   after every step;
 * ``det_data_reduction`` at D = 2: the replicas bit-equal, and two runs of
-  the layout bit-equal.
+  the layout bit-equal;
+* the compiled step (``compile_step``) over the CPU stand-in of the capture
+  context, at D = 2, K = 2 (also ``every_kth`` at k = 2: two graphs) and
+  D = 2 x K = 2 (with and without ``det_data_reduction``): every metric,
+  parameter, buffer and Adam moment, every sample and snapshot taken
+  between its steps, bit for bit the eager step's from the same init,
+  batch and z. Gloo ranks cannot capture; on the card the same protocol
+  replays graphs that hold the NCCL collectives (tests/test_torch_cuda.py,
+  chip_smoke.py).
 """
 
 import numpy as np
@@ -102,6 +110,46 @@ def four(tmp_path_factory):
             run("lr30", council=2, name="D2K2-lr30")]
     return launch({"scenario": "steps", "runs": runs}, 4,
                   tmp_path_factory.mktemp("four"))
+
+
+@pytest.fixture(scope="module")
+def compiled(tmp_path_factory):
+    """Each layout's eager and compiled steps, by run name."""
+    tmp = tmp_path_factory.mktemp("compiled")
+    two = launch({"scenario": "compiled", "runs": [
+        {**run("default", name="D2"), "steps": 4},
+        {**run("default", council=2, name="K2"), "steps": 4},
+        {**run("every_kth", council=2, name="K2-every_kth"), "steps": 6}]},
+        2, tmp)
+    four = launch({"scenario": "compiled", "runs": [
+        {**run("default", council=2, name="D2K2"), "steps": 4},
+        {**run("default", council=2, name="D2K2-det",
+               det_data_reduction=True), "steps": 4}]}, 4, tmp)
+    return {name: [r[name] for r in ranks] for ranks in (two, four)
+            for name in ranks[0]}
+
+
+@pytest.mark.parametrize("name,graphs", [
+    ("D2", 1), ("K2", 1), ("K2-every_kth", 2), ("D2K2", 1), ("D2K2-det", 1)])
+def test_compiled_step_is_the_eager_step(compiled, name, graphs):
+    for rank, out in enumerate(compiled[name]):
+        eager, comp = out["eager"], out["compiled"]
+        steps = len(eager["metrics"])
+        assert comp["graphs"] == graphs
+        # each step shape's first call is its eager warm-up, then one
+        # capture each, and every later call a replay
+        assert comp["replays"] == steps - graphs
+        assert comp["metrics"] == eager["metrics"], rank
+        for a, b in zip(comp["local"], eager["local"]):
+            assert all(torch.equal(x, y) for (_, x), (_, y)
+                       in zip(flat(a), flat(b)))
+        for a, b in zip(comp["samples"], eager["samples"]):
+            assert torch.equal(a, b)
+        for a, b in zip(comp["snapshots"], eager["snapshots"]):
+            if rank == 0:
+                assert_bit_equal(a, b)
+            else:
+                assert a is None and b is None
 
 
 def _layouts(request, name):

@@ -12,17 +12,28 @@ output directory; the rank writes ``rank<RANK>.pt`` there. Scenarios:
   ``train.loop.make_trainer``); records every step's metrics and this rank's
   state, and the snapshot gathered to rank 0. A run's weights, batch and z
   codes may come from a file (the JAX package's, for the parity test).
+* ``compiled``: each run twice from the same init, batch and z, through
+  ``train_step`` and through ``compile_step`` over the CPU stand-in of the
+  capture context (tests/test_torch_capture_helpers.py); after every step
+  each samples the display rows and takes a snapshot, as the train loop
+  does between replays. Records both routes' metrics, states, samples and
+  snapshots, and the compiled step's graphs and replays.
 * ``cli``: ``councilx_torch.cli.train.main`` on each argument list in turn,
-  recording the display batches the loop samples.
+  recording the display batches the loop samples and what it printed;
+  ``standin`` (one flag per argument list) runs the loop on the stand-in,
+  so it takes the captured route.
 
 :func:`launch` starts the ranks from a test and returns their outputs.
 """
 
+import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
 import tempfile
+from unittest import mock
 
 import numpy as np
 import torch
@@ -71,7 +82,46 @@ def run_steps(spec, world: int) -> dict:
     return out
 
 
+def run_compiled(spec, world: int) -> dict:
+    from test_torch_capture_helpers import use_stand_in
+
+    use_stand_in(setattr)
+    out = {}
+    for run in spec["runs"]:
+        cfg = Config.from_dict({**run["raw"], "num_devices": world,
+                                "council_parallel": run.get("council", 1)})
+        x_a, x_b = _batch(0, cfg.batch_size, cfg.data.crop_image_height)
+        disp = torch.from_numpy(x_a[:2])
+        z_disp = torch.randn((cfg.council.council_size, 2, cfg.gen.style_dim),
+                             generator=torch.Generator().manual_seed(9))
+        res = {}
+        for route in ("eager", "compiled"):
+            trainer = loop.make_trainer(cfg, device="cpu")
+            state = trainer.init_state(0)
+            step = (trainer.compile_step(state) if route == "compiled"
+                    else trainer.train_step)
+            b = cfg.batch_size // trainer.data_size
+            rows = slice(trainer.data_index * b, (trainer.data_index + 1) * b)
+            got = {"metrics": [], "local": [], "samples": [], "snapshots": []}
+            for _ in range(run["steps"]):
+                state, m = step(state, x_a[rows], x_b[rows])
+                got["metrics"].append({k: float(v) for k, v in m.items()})
+                got["local"].append(state.snapshot())
+                got["samples"].append(trainer.sample(state, disp,
+                                                     z=z_disp)[0])
+                got["snapshots"].append(trainer.snapshot(state))
+            if route == "compiled":
+                got["graphs"] = len(step.calls)
+                got["replays"] = sum(c.replays for c, _ in
+                                     step.calls.values())
+            res[route] = got
+        out[run["name"]] = res
+    return out
+
+
 def run_cli(spec, rank: int, world: int) -> dict:
+    from test_torch_capture_helpers import use_stand_in
+
     shown = []
     write_samples = loop._write_samples
 
@@ -86,9 +136,20 @@ def run_cli(spec, rank: int, world: int) -> dict:
     group = ([] if world == 1 else
              ["--coordinator", spec["store"], "--num_processes", str(world),
               "--process_id", str(rank)])
-    summaries = [train_cli.main(argv + group + ["--device", "cpu"])
-                 for argv in spec["argvs"]]
-    return {"summaries": summaries, "shown": shown}
+    summaries, printed = [], []
+    for argv, standin in zip(spec["argvs"], spec.get(
+            "standin", [False] * len(spec["argvs"]))):
+        buf = io.StringIO()
+        with contextlib.ExitStack() as stack:
+            if standin:
+                use_stand_in(lambda obj, name, value: stack.enter_context(
+                    mock.patch.object(obj, name, value)))
+            stack.enter_context(contextlib.redirect_stdout(buf))
+            summaries.append(train_cli.main(argv + group +
+                                            ["--device", "cpu"]))
+        print(buf.getvalue(), end="", flush=True)
+        printed.append(buf.getvalue())
+    return {"summaries": summaries, "shown": shown, "printed": printed}
 
 
 def launch(spec: dict, world: int, tmp, timeout: float = 240) -> list:
@@ -136,7 +197,8 @@ def main():
         if world > 1:
             multihost.maybe_init_distributed(spec["store"], world, rank,
                                              device="cpu")
-        out = run_steps(spec, world)
+        run = run_compiled if spec["scenario"] == "compiled" else run_steps
+        out = run(spec, world)
     torch.save(out, f"{spec['out']}/rank{rank}.pt")
     multihost.shutdown()
 
