@@ -19,7 +19,14 @@ Endpoints:
     POST /encode_style                     style image bytes in, its style
                                            code out as JSON {"z": [...]}
     GET  /healthz                          liveness + config summary
-    GET  /stats                            batching/latency counters
+    GET  /stats                            batching/latency counters:
+                                           requests, batches, padded
+                                           rows, the batch-size
+                                           histogram, mean_latency_ms
+                                           (submit to resolved) and
+                                           mean_stage_ms, its split into
+                                           queue, coalesce, dispatch,
+                                           inflight and resolve
 
 W8A8 int8 serving: ``--quant w8a8`` (per-image activation scales), or
 ``--quant w8a8_static --calibration quant_stats.npz`` (scales from

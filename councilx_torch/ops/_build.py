@@ -29,6 +29,8 @@ import threading
 import time
 from typing import Dict
 
+from councilx_torch.utils import trace
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
@@ -66,9 +68,9 @@ def _library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
-def _compile(names) -> None:
+def _compile(names) -> int:
     """Run one ``nvcc`` per missing library, all at once; raise if any
-    fails. Called under the lock."""
+    fails, else return how many ran. Called under the lock."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     jobs = []
     for name in names:
@@ -88,6 +90,7 @@ def _compile(names) -> None:
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
+    return len(jobs)
 
 
 def build_cuda_libraries(names) -> None:
@@ -97,11 +100,13 @@ def build_cuda_libraries(names) -> None:
         todo = [n for n in names if n not in _libs]
         if not todo:
             return
-        t0 = time.perf_counter()
-        _compile(todo)
-        for name in todo:
-            _libs[name] = ctypes.CDLL(_library_path(name))
-            build_seconds[name] = time.perf_counter() - t0
+        with trace.span("setup.kernel_load"):
+            t0 = time.perf_counter()
+            trace.count("kernels_built", _compile(todo))
+            for name in todo:
+                _libs[name] = ctypes.CDLL(_library_path(name))
+                build_seconds[name] = time.perf_counter() - t0
+            trace.count("kernels_loaded", len(todo))
 
 
 def load_cuda_library(name: str) -> ctypes.CDLL:

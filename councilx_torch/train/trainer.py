@@ -78,6 +78,7 @@ from councilx_torch.nn.vgg import (compute_vgg_loss, load_vgg,
                                    vgg_target_features)
 from councilx_torch.train.optim import (Adam, AdamState, assign_,
                                         make_optimizers)
+from councilx_torch.utils import trace
 from councilx_torch.utils.graphs import CaptureContext, require_cuda
 
 GROUPS = ("gen", "dis", "cdis")
@@ -698,6 +699,9 @@ class CouncilTrainer:
         zs_gen = zs["gen"]
         z_mode = cfg.z_mode
         metrics: Dict[str, torch.Tensor] = {}
+        # device marks (while tracing): the step's entry and the end of each
+        # phase, the translation included (``CompiledStep.phase_ms``)
+        trace.device_mark("step.entry", self.device)
 
         # detached fakes for the discriminator phases (see the module
         # docstring for when they are the generator phase's translations)
@@ -715,6 +719,7 @@ class CouncilTrainer:
                       if z_mode == "per_phase" else fakes)
         fakes_cdis = {d: self._gather_members(f)
                       for d, f in fakes_cdis.items()}
+        trace.device_mark("step.translate", self.device)
 
         # ---- phase 1: council discriminators (reference dis_council_update)
         if self.has_council:
@@ -741,6 +746,7 @@ class CouncilTrainer:
             metrics["loss_dis_council"] = loss_cdis
             if cfg.skip_nonfinite_updates:
                 metrics["finite_cdis"] = ok_cdis
+        trace.device_mark("step.cdis", self.device)
 
         # ---- phase 2: domain discriminators (reference dis_update)
         params = group_params(state.dis)
@@ -754,6 +760,7 @@ class CouncilTrainer:
         if cfg.skip_nonfinite_updates:
             metrics["finite_dis"] = ok_dis
         del fakes, fakes_cdis
+        trace.device_mark("step.dis", self.device)
 
         # ---- phase 3: generators (reference gen_update), seeing the freshly
         # updated discriminators
@@ -781,7 +788,9 @@ class CouncilTrainer:
         metrics.update(aux)
         if cfg.skip_nonfinite_updates:
             metrics["finite_gen"] = ok_gen
-        return self._reduce_metrics(metrics)
+        metrics = self._reduce_metrics(metrics)
+        trace.device_mark("step.gen", self.device)
+        return metrics
 
     def _gen_grads_chunked(self, state: TrainState, inputs, zs,
                            step: torch.Tensor):
@@ -882,6 +891,13 @@ class CompiledStep:
     one device copy of the graph's packed metrics, so a later replay does
     not overwrite them.
 
+    Tracing (``utils/trace.py``) spans each call's host work as
+    ``step.prepare`` (the inputs staged and copied into the graph's),
+    ``step.replay`` (the launch alone) and ``step.finish`` (the metrics'
+    copy, the version bumps). A capture made while tracing is on holds the
+    step's device marks, which time its phases at every replay
+    (:meth:`phase_ms`).
+
     The graphs are tied to this state's tensors: another ``TrainState``
     (a restored one, say) needs its own compiled step.
 
@@ -902,6 +918,9 @@ class CompiledStep:
         self.ctx = CaptureContext(trainer.device, "compile_step")
         self.calls: Dict[tuple, Any] = {}
         self.warmed = set()
+        # each captured shape's device marks, and the shape last replayed
+        self.marks: Dict[tuple, list] = {}
+        self.last_key: Optional[tuple] = None
         self._params = [p for grp in GROUPS
                         for p in group_params(getattr(state, grp))]
 
@@ -938,13 +957,26 @@ class CompiledStep:
                                 for v in metrics.values()])
 
         t._agree_on_capture(key)
-        return self.ctx.capture(step_fn, flat,
-                                f"{t.layout()}: train step {key}"), names
+        first = len(trace.marks())
+        call = self.ctx.capture(step_fn, flat,
+                                f"{t.layout()}: train step {key}")
+        self.marks[key] = [(n, ev) for n, ev, captured
+                           in trace.marks()[first:] if captured]
+        return call, names
 
     @property
     def capture_seconds(self) -> Dict[tuple, float]:
         """Each step shape's capture seconds."""
         return {k: c.capture_seconds for k, (c, _) in self.calls.items()}
+
+    def phase_ms(self, key: Optional[tuple] = None) -> Dict[str, float]:
+        """The device ms of each phase of step shape ``key``'s latest
+        replay (the shape last replayed by default), by the mark that ends
+        it (``translate``, ``cdis``, ``dis``, ``gen``); call it after a
+        synchronize. Empty where tracing was off at the capture."""
+        marks = self.marks.get(self.last_key if key is None else key, [])
+        return {b[0].split(".", 1)[1]: a[1].elapsed_time(b[1])
+                for a, b in zip(marks, marks[1:])}
 
     def __call__(self, state: TrainState, x_a, x_b,
                  zs: Optional[Mapping[str, Any]] = None):
@@ -953,11 +985,15 @@ class CompiledStep:
                              "TrainState's tensors: compile_step(state) "
                              "for this one")
         t = self.trainer
-        x_a, x_b, zs = t._step_inputs(state, x_a, x_b, zs)
-        cdis_now = t._cdis_now(state.step)
-        key = (tuple(x_a.shape), tuple(x_b.shape), cdis_now)
-        step = torch.full((), state.step, dtype=torch.int32,
-                          device=t.device)
+        with trace.span("step.prepare"):
+            x_a, x_b, zs = t._step_inputs(state, x_a, x_b, zs)
+            cdis_now = t._cdis_now(state.step)
+            key = (tuple(x_a.shape), tuple(x_b.shape), cdis_now)
+            step = torch.full((), state.step, dtype=torch.int32,
+                              device=t.device)
+            flat = self._flat(x_a, x_b, zs, step)
+            if key in self.calls:
+                self.calls[key][0].copy_inputs(flat)
         if key not in self.calls:
             if key not in self.warmed:
                 metrics = self.ctx.run(t._step, state, x_a, x_b, zs, step,
@@ -967,11 +1003,15 @@ class CompiledStep:
                 return state, metrics
             for p in self._params:
                 increment_version(p)
-            self.calls[key] = self._capture(
-                key, self._flat(x_a, x_b, zs, step), zs, cdis_now)
+            self.calls[key] = self._capture(key, flat, zs, cdis_now)
+            self.calls[key][0].copy_inputs(flat)
         call, names = self.calls[key]
-        packed = call(*self._flat(x_a, x_b, zs, step)).clone()
-        for p in self._params:
-            increment_version(p)
-        state.step += 1
-        return state, {k: packed[i] for i, k in enumerate(names)}
+        with trace.span("step.replay"):
+            out = call.replay()
+        with trace.span("step.finish"):
+            packed = out.clone()
+            for p in self._params:
+                increment_version(p)
+            state.step += 1
+            self.last_key = key
+            return state, {k: packed[i] for i, k in enumerate(names)}

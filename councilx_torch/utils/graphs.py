@@ -48,6 +48,8 @@ from typing import Any, Callable, Sequence
 
 import torch
 
+from councilx_torch.utils import trace
+
 
 def capturable(device) -> bool:
     """Whether work on ``device`` is captured: CUDA only."""
@@ -84,18 +86,19 @@ class CapturedCall:
         current = torch.cuda.current_stream(ctx.device)
         ctx.stream.wait_stream(current)
         torch.cuda.synchronize(ctx.device)
-        t0 = time.perf_counter()
-        try:
-            with torch.cuda.graph(self.graph, pool=ctx.pool,
-                                  stream=ctx.stream,
-                                  capture_error_mode="thread_local"):
-                self.output = fn(*self.inputs)
-        except RuntimeError as e:
-            raise RuntimeError(f"CUDA graph capture of {name} failed: "
-                               f"{e}") from e
-        current.wait_stream(ctx.stream)
-        torch.cuda.synchronize(ctx.device)
-        self.capture_seconds = time.perf_counter() - t0
+        with trace.span("setup.capture"):
+            t0 = time.perf_counter()
+            try:
+                with torch.cuda.graph(self.graph, pool=ctx.pool,
+                                      stream=ctx.stream,
+                                      capture_error_mode="thread_local"):
+                    self.output = fn(*self.inputs)
+            except RuntimeError as e:
+                raise RuntimeError(f"CUDA graph capture of {name} failed: "
+                                   f"{e}") from e
+            current.wait_stream(ctx.stream)
+            torch.cuda.synchronize(ctx.device)
+            self.capture_seconds = time.perf_counter() - t0
         self.replays = 0
 
     def copy_inputs(self, inputs: Sequence[torch.Tensor]) -> None:
@@ -138,12 +141,17 @@ class CaptureContext:
 
     def run(self, fn: Callable, *args) -> Any:
         """``fn(*args)`` eagerly on the side stream (a warm-up), ordered
-        after the current stream's work and before its later work."""
-        current = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(current)
-        with torch.cuda.stream(self.stream):
-            out = fn(*args)
-        current.wait_stream(self.stream)
+        after the current stream's work and before its later work. While
+        tracing is on it ends in a synchronize, so that its span holds its
+        device time and the next capture none of it."""
+        with trace.span("setup.warmup"):
+            current = torch.cuda.current_stream(self.device)
+            self.stream.wait_stream(current)
+            with torch.cuda.stream(self.stream):
+                out = fn(*args)
+            current.wait_stream(self.stream)
+            if trace.enabled():
+                torch.cuda.synchronize(self.device)
         return out
 
     def capture(self, fn: Callable, inputs: Sequence[torch.Tensor],

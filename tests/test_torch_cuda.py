@@ -952,6 +952,63 @@ def test_captured_train_steps_are_the_eager_ones(cuda, tmp_path, variant):
         torch.backends.cudnn.deterministic = False
 
 
+def test_captured_device_marks_time_each_replay(cuda):
+    """A step captured while tracing holds its five device marks as event
+    nodes: after each replay and a synchronize their four intervals read,
+    every one positive, and sum to within 5% of an event pair around the
+    replay; the replays stay bit-equal to a step captured untraced. The
+    clock anchor's wait is its error."""
+    from councilx_torch.utils import trace
+
+    cfg = Config.from_dict(chip_smoke.REDUCED)
+    r = np.random.default_rng(0)
+    x_a, x_b = (torch.from_numpy(r.uniform(-1, 1, (2, 64, 64, 3)).astype(
+        np.float32)).to(cuda) for _ in range(2))
+    torch.backends.cudnn.deterministic = True
+    got = {}
+    try:
+        for record in (False, True):
+            trainer = CouncilTrainer(cfg, device=cuda)
+            state = trainer.init_state(seed=0)
+            step = trainer.compile_step(state)
+            if record:
+                trace.clear()
+                trace.on()
+            try:
+                got[record] = []
+                for i in range(5):
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    _, m = step(state, x_a, x_b)
+                    b.record()
+                    torch.cuda.synchronize()
+                    got[record].append(m)
+                    if record and i >= 2:
+                        ph = step.phase_ms()
+                        assert list(ph) == ["translate", "cdis", "dis",
+                                            "gen"]
+                        assert min(ph.values()) > 0, ph
+                        pair = a.elapsed_time(b)
+                        assert abs(sum(ph.values()) / pair - 1) < 0.05, \
+                            (ph, pair)
+                anchor = trace.clock_anchor(cuda)
+            finally:
+                trace.off()
+            if not record:
+                assert step.phase_ms() == {}
+        assert 0 <= anchor.error_ns < 1e9
+        names = [r[0] for r in trace.records()]
+        assert names.count("step.replay") == 4
+        assert names.count("setup.capture") == 1
+        for want, have in zip(got[False], got[True]):
+            for k in want:
+                assert torch.equal(want[k], have[k]), k
+    finally:
+        torch.backends.cudnn.deterministic = False
+        trace.clear()
+
+
 @pytest.mark.parametrize("variant", ["dis_shared", "member_chunks"])
 def test_captured_step_after_a_sample_reads_the_live_weights(cuda, variant):
     """The fakes of a no-grad generator forward (``dis_shared``, member
