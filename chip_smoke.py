@@ -35,7 +35,10 @@ Phases, in order; any failure raises and exits non-zero:
    256px, batch 8, bf16, focus mask, a2b) through
    ``CouncilTrainer.train_step``: 2 warm steps, 10 timed steps, every
    metric finite, img/s and peak memory, and the launch counts of the
-   forward and backward kernels checked against each other;
+   forward and backward kernels checked against each other, P1 and P1'
+   (the reflect pad and its fold) at ``TRAIN_PAD_PER_MEMBER`` and
+   ``TRAIN_FOLD_PER_MEMBER`` a member and step, as every phase below
+   that counts launches holds P1 to the pads of its path;
 7. accuracy of the training path: a reduced config's first two steps on
    the card (f32 parity mode, then bf16) against the port on the CPU from
    the same weights, batch and z;
@@ -80,7 +83,8 @@ Phases, in order; any failure raises and exits non-zero:
    --calibration``: concurrent requests in full buckets, each within 1
    uint8 level of a direct call at the same bucket, the launches per member
    forward (Q1 16 or 20, Q2 as many, one launch per conv in either mode, K1
-   at none of them, the norms as in phase 4), engine and device-call img/s
+   at none of them, P1 at the unquantized convs' pads, the norms as in
+   phase 4), engine and device-call img/s
    beside phase 4's unquantized ones; member 0 on the card in f32 and bf16
    against the CPU port in f32 with the same quantization
    (:func:`quant_accuracy`: every quantized block on the CPU block's
@@ -123,9 +127,10 @@ Phases, in order; any failure raises and exits non-zero:
    phase 11): the JAX package's last features (:func:`phase_complete`).
    (a) ``remat_stages``: 2 headline steps bit-equal to the plain step's
    from the same weights, batch and z (cuDNN deterministic), with the
-   recompute's launch invariant (every forward launch twice, every
-   backward once: :func:`remat_stage_launches`), then 2 warm and 5 timed
-   steps of each: ms per step and peak memory, which must fall; (b) ``vgg_w:
+   recompute's launch invariant (every forward launch twice, P1 again
+   at the stages' pads, every backward once:
+   :func:`remat_stage_launches`), then 2 warm and 5 timed steps of each:
+   ms per step and peak memory, which must fall; (b) ``vgg_w:
    1`` with a seeded random VGG16 ``.npz`` under ``build/``: 2 warm and 5
    timed steps, finite metrics, ``loss_gen_vgg_a2b`` > 0, ms per step and
    peak memory beside the plain step's, the VGG loss's own device ms; (c)
@@ -162,11 +167,12 @@ Phases, in order; any failure raises and exits non-zero:
    defaults, ``upsample_engine`` phase and ln_fused, the defaults with
    ``resblock_fuse_pad``): bf16 within phase 5's tolerances of the card's
    reference route at the same bucket and of the CPU f32 Translator of the
-   same setting on 2 images; K1/norm/AdaIN launches per forward; wall ms
-   per call, kernel and gather ms under the profiler. The headline step
-   under ``ENGINE_TRAIN`` (the reference route, the defaults, phase +
-   resblock_fuse_pad): ms per step over 10 after 2, kernel and gather ms,
-   launches (K1 more by the phase convs), peak memory; then phase 7's
+   same setting on 2 images; K1/norm/AdaIN/P1 launches per forward; wall
+   ms per call, kernel ms under the profiler. The headline step under
+   ``ENGINE_TRAIN`` (the reference route, the defaults, phase +
+   resblock_fuse_pad): ms per step over 10 after 2, kernel ms, launches
+   (K1 more by the phase convs, P1 and P1' per ``ENGINE_TRAIN_PADS``),
+   peak memory; then phase 7's
    reduced config in f32 outside parity mode under the last of them, card
    against CPU at phase 7's f32 tolerances. Every other phase runs the JAX
    defaults (phase_fused 7x7 convs, the dilated upsample).
@@ -183,7 +189,10 @@ Q1 (int8 conv) bit-equal in its int32 accumulator and its bf16 (and, at
 the resblock site, f32) output, Q2 (activation quantize) bit-equal in its
 codes and scales, static and per image, beside K1 and cuDNN in bf16 and
 ``torch._int_mm`` on the unfolded int8 matrices, with each wrapper's host
-time per call; and both at ragged shapes (``QUANT_RAGGED``).
+time per call; and both at ragged shapes (``QUANT_RAGGED``); and P1 and
+P1' (the reflect pad and its fold, :func:`pad_cases`) at ``PAD_SITES``,
+P1 bit-equal to the index gather, beside the gather and its
+``index_put_`` backward.
 
 The line before the last is one JSON object describing every kernel; the
 last is ``{"ok": true, "device": {...}}``.
@@ -219,6 +228,8 @@ from councilx_torch.nn.vgg import (compute_vgg_loss, init_random_vgg,
 from councilx_torch.ops import _build
 from councilx_torch.ops import conv3x3 as conv_ops
 from councilx_torch.ops import instance_norm as norm_ops
+from councilx_torch.ops import pad as pad_ops
+from councilx_torch.ops.pad import pad_fold, pad_nhwc
 from councilx_torch.ops.conv3x3 import (conv3x3_dgrad,
                                         conv3x3_dgrad_reference,
                                         conv3x3_same_zero,
@@ -262,6 +273,11 @@ N_MEMBERS = 4
 CONV_PER_FWD = 16
 NORM_PER_FWD = 19
 ADAIN_PER_FWD = 8
+# P1 launches per member forward: the 7x7s' (phase-packed) first and last
+# convs, the two 4x4 stride-2 convs, the 16 resblock convs, and 4 border
+# strips per dilated upsample conv (counted on the CPU by
+# tests/test_torch_chip_smoke.py, as are the pad counts below)
+PAD_PER_FWD = 28
 # bench.py::headline_config, the train step the JAX package's bench times
 HEADLINE = {
     "batch_size": 8, "compute_dtype": "bfloat16", "remat": False,
@@ -280,6 +296,13 @@ HEADLINE = {
 TRAIN_CONV_PER_MEMBER = 16 + 8 + 8
 TRAIN_NORM_PER_MEMBER = 19 + 8 + 11
 TRAIN_ADAIN_PER_MEMBER = 8 + 8
+# P1 and P1' launches per member and headline train step, generators and
+# discriminators together; P1' at every P1 whose input takes a gradient
+TRAIN_PAD_PER_MEMBER = 122
+TRAIN_FOLD_PER_MEMBER = 111
+# P1 launches per member and step that remat_stages runs again: the pads
+# inside the checkpointed stages, recomputed in the backward
+REMAT_PAD_PER_MEMBER = 56
 WARM_STEPS = 2
 TIMED_STEPS = 10
 # the reduced config of the training accuracy phase
@@ -320,10 +343,16 @@ SERVE_LAYOUTS = (("ShardedTranslator D=2", 2, 1),
 
 # every CUDA source of councilx_torch/csrc, built in phase 2
 CUDA_SOURCES = ("conv3x3", "conv3x3_wgrad", "instance_norm_fwd",
-                "instance_norm_bwd", "quant_act", "conv_int8")
+                "instance_norm_bwd", "quant_act", "conv_int8", "pad_nhwc")
 # kernels whose two launches on the same inputs must be bit-equal
 DETERMINISTIC = ("conv3x3_wgrad", "conv3x3_wgrad_pad1", "instance_norm",
-                 "adain", "instance_norm_bwd", "adain_bwd")
+                 "adain", "instance_norm_bwd", "adain_bwd", "pad_fold")
+# phase 3's pad kernels (P1, P1'), reflect, bf16: x (B, H, W, C) and p of
+# the resblock site and of the final 7x7 at serving's bucket 64, of the
+# resblock site at bucket 8, and of the image at the discriminator's first
+# conv
+PAD_SITES = (((64, 64, 64, 256), 1), ((64, 256, 256, 64), 3),
+             ((BATCH, 64, 64, 256), 1), ((BATCH, 256, 256, 3), 1))
 # phase 3's K1/K1'/K2 at the conv engines' shapes, (B, H, W, C, O) of the
 # forward conv: the upsample engines' phase conv (3x3 to 4x the block's
 # outputs on the pre-upsample input replicate-padded by 1), and the
@@ -382,6 +411,8 @@ QUANT_RAGGED = (
 QUANT_SCOPES = ("resblocks", "heavy")
 # Q1 (and Q2) launches per member forward, by scope
 QUANT_PER_FWD = {"resblocks": 16, "heavy": 20}
+# P1 launches per member forward, by scope: a quantized conv's pad is Q2's
+QUANT_PAD_PER_FWD = {"resblocks": 12, "heavy": 10}
 
 # the card's peak rates (NVIDIA H100 SXM data sheet, dense, at the full
 # 700 W): bf16 on the tensor cores, f32 on the FMA units, int8 on the
@@ -428,6 +459,13 @@ def kernel_work(name: str, shape, esize: int = 2):
         nbytes = (b * hp * wp * c + k * k * c * o + esize * b * ho * wo * o
                   + 4 * (b + 2 * o))
         return ops, nbytes, "int8"
+    if name in ("pad_nhwc", "pad_fold"):
+        # shape: a PAD_SITES entry; x read and the padded tensor written
+        # (the fold: the padded cotangent read, dx written); no arithmetic
+        # but the fold's few adds at the border
+        (b, h, w, c), pad = shape
+        n = b * h * w * c + b * (h + 2 * pad) * (w + 2 * pad) * c
+        return 0, esize * n, "f32"
     if name in ("quant_act", "quant_act_dynamic"):
         # x read once, the padded int8 codes and the scales written, in
         # both modes; a few operations per element
@@ -679,8 +717,40 @@ def phase_kernels(g: torch.Generator, card_str: str) -> dict:
                     lambda out=out, leaves=leaves, dyl=dyl:
                         torch.autograd.grad(out, leaves, dyl,
                                             retain_graph=True)))
-    cases += repaired_cases(g) + eval_batch_cases(g) + engine_conv_cases(g)
+    cases += (repaired_cases(g) + eval_batch_cases(g) + engine_conv_cases(g)
+              + pad_cases(g))
     return run_cases(cases, card_str)
+
+
+def pad_cases(g: torch.Generator) -> list:
+    """Phase 3's P1 and P1' at ``PAD_SITES`` (reflect, bf16): P1 bit-equal
+    to the index gather (its plain version, and the library call beside
+    it), P1' against the plain fold (one rounding of an f32 sum on either
+    side); their library calls the gather and the autograd backward of the
+    gather (``index_put_`` with accumulate), which the port ran before."""
+    cases = []
+    for shape, p in PAD_SITES:
+        b, h, w, c = shape
+        x = torch.randn(*shape, device="cuda", generator=g).bfloat16()
+        dy = torch.randn(b, h + 2 * p, w + 2 * p, c, device="cuda",
+                         generator=g).bfloat16()
+        leaf = x.clone().requires_grad_()
+        out = pad_ops.pad_reference(leaf, p, "reflect")
+        cases.append(("pad_nhwc", "pad", torch.bfloat16, shape, (shape, p),
+                      lambda x=x, p=p: pad_ops.pad_nhwc(x, p, "reflect"),
+                      lambda x=x, p=p: pad_ops.pad_reference(x, p,
+                                                             "reflect"),
+                      lambda x=x, p=p: pad_ops.pad_reference(x, p,
+                                                             "reflect")))
+        cases.append(("pad_fold", "pad_fold", torch.bfloat16, shape,
+                      (shape, p),
+                      lambda dy=dy, h=h, w=w, p=p: pad_ops.pad_fold(
+                          dy, h, w, p, "reflect"),
+                      lambda dy=dy, h=h, w=w, p=p: pad_ops.pad_fold_reference(
+                          dy, h, w, p, "reflect"),
+                      lambda out=out, leaf=leaf, dy=dy: torch.autograd.grad(
+                          out, leaf, dy, retain_graph=True)))
+    return cases
 
 
 # phase 3's tolerances by (kind, dtype), relative to the largest |plain|
@@ -690,7 +760,10 @@ TOL_REL = {("conv", torch.bfloat16): 2 ** -6, ("conv", torch.float32): 1e-4,
            ("wgrad", torch.float32): 1e-4,
            ("norm", torch.bfloat16): 2 ** -6, ("norm", torch.float32): 1e-5,
            ("norm_bwd", torch.bfloat16): 2 ** -6,
-           ("norm_bwd", torch.float32): 1e-4}
+           ("norm_bwd", torch.float32): 1e-4,
+           ("pad", torch.bfloat16): 0, ("pad", torch.float32): 0,
+           ("pad_fold", torch.bfloat16): 2 ** -6,
+           ("pad_fold", torch.float32): 1e-6}
 
 
 def run_cases(cases: list, card_str: str) -> dict:
@@ -1110,7 +1183,8 @@ COUNTERS = ((conv3x3_valid, ("launches", "grad_launches")),
                              "affine_grad_launches")),
             (instance_norm_backward, ("launches", "affine_launches")),
             (conv_int8, ("launches",)),
-            (quantize_act, ("launches", "per_image_launches")))
+            (quantize_act, ("launches", "per_image_launches")),
+            (pad_nhwc, ("launches",)), (pad_fold, ("launches",)))
 
 
 def reset_counts():
@@ -1121,14 +1195,15 @@ def reset_counts():
 
 def counts():
     return (conv3x3_valid.launches, instance_norm.launches,
-            instance_norm.affine_launches)
+            instance_norm.affine_launches, pad_nhwc.launches,
+            pad_fold.launches)
 
 
 def check_counts(got, forwards: int, where: str):
     want = (CONV_PER_FWD * forwards, NORM_PER_FWD * forwards,
-            ADAIN_PER_FWD * forwards)
-    log(f"[serve] {where}: launches conv/norm/adain {got}, want {want} "
-        f"for {forwards} member forwards")
+            ADAIN_PER_FWD * forwards, PAD_PER_FWD * forwards, 0)
+    log(f"[serve] {where}: launches conv/norm/adain/P1/P1' {got}, want "
+        f"{want} for {forwards} member forwards")
     if got != want:
         raise AssertionError(f"{where}: kernel launches {got} != {want}")
 
@@ -1333,14 +1408,15 @@ def check_quant_counts(got: dict, forwards: int, scope: str, mode: str,
     once each at every quantized conv of ``scope`` (Q2 one launch in either
     mode, all of them per image under ``w8a8``), K1 at none (every 3x3
     stride-1 site is quantized), the norms as unquantized, nothing under a
-    gradient."""
+    gradient; P1 at the unquantized convs' pads."""
     per = QUANT_PER_FWD[scope] * forwards
     want = {name: 0 for name in got}
     want.update({"conv_int8.launches": per, "quantize_act.launches": per,
                  "quantize_act.per_image_launches": per if mode == "w8a8"
                  else 0,
                  "instance_norm.launches": NORM_PER_FWD * forwards,
-                 "instance_norm.affine_launches": ADAIN_PER_FWD * forwards})
+                 "instance_norm.affine_launches": ADAIN_PER_FWD * forwards,
+                 "pad_nhwc.launches": QUANT_PAD_PER_FWD[scope] * forwards})
     log(f"[quant] {where}: launches {json.dumps(got)} for {forwards} member "
         f"forwards")
     if got != want:
@@ -1647,13 +1723,15 @@ def phase_train(card_str: str) -> dict:
 
 
 def check_train_launches(got: dict, steps: int, where: str,
-                         conv_per_member: int = TRAIN_CONV_PER_MEMBER
-                         ) -> None:
+                         conv_per_member: int = TRAIN_CONV_PER_MEMBER,
+                         pads: tuple = (TRAIN_PAD_PER_MEMBER,
+                                        TRAIN_FOLD_PER_MEMBER)) -> None:
     """The launch invariants of ``steps`` headline train steps: every
     kernel site ran under autograd, and every forward under autograd had
     its backward (conv fwd = dgrad = wgrad, norm fwd = bwd).
     ``conv_per_member``: K1's sites per member and step (more under the
-    phase upsample engines: :func:`engine_conv_per_fwd`)."""
+    phase upsample engines: :func:`engine_conv_per_fwd`); ``pads``: P1's
+    and P1''s per member and step (``ENGINE_TRAIN_PADS``)."""
     forwards = steps * N_MEMBERS
     conv = conv_per_member * forwards
     norm = TRAIN_NORM_PER_MEMBER * forwards
@@ -1666,7 +1744,9 @@ def check_train_launches(got: dict, steps: int, where: str,
         "instance_norm.affine_launches": adain,
         "instance_norm.affine_grad_launches": adain,
         "instance_norm_backward.launches": norm,
-        "instance_norm_backward.affine_launches": adain})
+        "instance_norm_backward.affine_launches": adain,
+        "pad_nhwc.launches": pads[0] * forwards,
+        "pad_fold.launches": pads[1] * forwards})
     if got != want:
         raise AssertionError(f"{where} launches {got} != {want}")
 
@@ -1678,16 +1758,22 @@ FORWARD_COUNTERS = ("conv3x3_valid.launches", "conv3x3_valid.grad_launches",
                     "instance_norm.affine_grad_launches")
 
 
-def remat_stage_launches(plain: dict) -> dict:
-    """The launch counts of train steps under ``remat_stages`` from those of
-    the same steps without it. Every conv and norm kernel site of a step
-    lies in a checkpointed stage (the content encoder's 7x7 block,
-    downsamples and resblocks; the decoder's resblocks; the style encoder,
-    which is not checkpointed, has none), and each stage's recompute runs
-    its forward once more under autograd: every forward count doubles, the
-    backward counts stay."""
-    return {k: 2 * v if k in FORWARD_COUNTERS else v
-            for k, v in plain.items()}
+def remat_stage_launches(plain: dict, steps: int) -> dict:
+    """The launch counts of ``steps`` train steps under ``remat_stages``
+    from those of the same steps without it. Every conv and norm kernel
+    site of a step lies in a checkpointed stage (the content encoder's 7x7
+    block, downsamples and resblocks; the decoder's resblocks; the style
+    encoder, which is not checkpointed, has none), and each stage's
+    recompute runs its forward once more under autograd: every forward
+    count doubles, the backward counts stay. P1 runs again at the
+    ``REMAT_PAD_PER_MEMBER`` pads inside the stages of each of ``steps``
+    headline steps (the style encoders' and the discriminators' lie
+    outside them), where ``plain`` counts P1; P1' runs as often."""
+    out = {k: 2 * v if k in FORWARD_COUNTERS else v
+           for k, v in plain.items()}
+    if "pad_nhwc.launches" in out:
+        out["pad_nhwc.launches"] += REMAT_PAD_PER_MEMBER * steps * N_MEMBERS
+    return out
 
 
 def phase_train_accuracy(card_str: str, over=None,
@@ -1768,11 +1854,19 @@ ENGINE_TRAIN = (
     ("phase+resblock_fuse_pad", {"upsample_engine": "phase",
                                  "resblock_fuse_pad": True}),
 )
+# P1 launches per member forward under each of ENGINE_SERVE (the reference
+# route pads the 7x7s unpacked and the upsample convs whole; phase and
+# ln_fused pad the pre-upsample input of each upsample block's phase conv
+# besides; resblock_fuse_pad's strips pad each resblock conv's border
+# slices), and P1 and P1' per member and train step under ENGINE_TRAIN
+ENGINE_SERVE_PADS = {"reference": 22, "defaults": PAD_PER_FWD, "phase": 30,
+                     "ln_fused": 30, "resblock_fuse_pad": 76}
+ENGINE_TRAIN_PADS = {"reference": (110, 99),
+                     "defaults": (TRAIN_PAD_PER_MEMBER,
+                                  TRAIN_FOLD_PER_MEMBER),
+                     "phase+resblock_fuse_pad": (222, 211)}
 # wall-timed serving calls per setting, and calls (steps) under the profiler
 ENGINE_CALLS, ENGINE_PROFILED = 10, 3
-# the gather and scatter kernels (profile_port.py's class): the reflect-pad
-# gather, and in training its index_put_ backward's sort
-GATHER_KEYS = ("index", "scatter", "gather", "sort", "radix")
 
 
 def engine_conv_per_fwd(over: dict) -> int:
@@ -1793,9 +1887,9 @@ def engine_train_conv(over: dict) -> int:
 
 
 def kernel_profile(fn, calls: int):
-    """(kernel ms, gather/scatter ms, kernel launches) per call of fn, from
-    the CUDA events of a torch.profiler trace of ``calls`` calls (the trace
-    is taken again, up to twice, if it holds no device event)."""
+    """(kernel ms, kernel launches) per call of fn, from the CUDA events of
+    a torch.profiler trace of ``calls`` calls (the trace is taken again, up
+    to twice, if it holds no device event)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for _ in range(3):
@@ -1804,17 +1898,14 @@ def kernel_profile(fn, calls: int):
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        total = gather = 0.0
+        total = 0.0
         n = 0
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
-                us = e.time_range.elapsed_us()
-                total += us
+                total += e.time_range.elapsed_us()
                 n += 1
-                if any(k in e.name for k in GATHER_KEYS):
-                    gather += us
         if n:
-            return total / 1e3 / calls, gather / 1e3 / calls, n / calls
+            return total / 1e3 / calls, n / calls
     raise AssertionError("the profiler recorded no device event")
 
 
@@ -1834,10 +1925,9 @@ def engines_serve(card_str: str) -> dict:
     """The flagship model's member 0 at bucket 8 under each of
     ``ENGINE_SERVE``: its bf16 output against the card's reference route
     at the same bucket and, on 2 images, against the CPU f32 Translator of
-    the same setting; K1 and norm launches per forward; wall ms per
+    the same setting; K1, norm and P1 launches per forward; wall ms per
     ``translate_u8io_device`` call (host clock around synchronized calls,
-    median of ENGINE_CALLS), kernel and gather ms per call under the
-    profiler."""
+    median of ENGINE_CALLS), kernel ms per call under the profiler."""
     sd = Translator(Config.from_dict(FLAGSHIP), device="cpu").init_members(
         1, seed=0)[0].state_dict()
     rng = np.random.default_rng(3)
@@ -1858,10 +1948,12 @@ def engines_serve(card_str: str) -> dict:
         torch.cuda.synchronize()
         launches = _snapshot()
         got8 = got8.float().cpu().numpy()
-        want = (engine_conv_per_fwd(over), NORM_PER_FWD, ADAIN_PER_FWD)
+        want = (engine_conv_per_fwd(over), NORM_PER_FWD, ADAIN_PER_FWD,
+                ENGINE_SERVE_PADS[name], 0)
         if counts() != want:
             raise AssertionError(f"[engines] {name}: launches conv/norm/"
-                                 f"adain {counts()} != {want} per forward")
+                                 f"adain/P1/P1' {counts()} != {want} per "
+                                 f"forward")
         if ref8 is None:
             ref8 = got8
         else:
@@ -1887,16 +1979,17 @@ def engines_serve(card_str: str) -> dict:
             call()
             torch.cuda.synchronize()
             walls.append(1e3 * (time.perf_counter() - t0))
-        kernel_ms, gather_ms, n = kernel_profile(call, ENGINE_PROFILED)
+        kernel_ms, n = kernel_profile(call, ENGINE_PROFILED)
         out[name] = {"wall_ms": float(np.median(walls)),
-                     "kernel_ms": kernel_ms, "gather_ms": gather_ms,
-                     "kernel_launches": n, "launches": launches}
+                     "kernel_ms": kernel_ms, "kernel_launches": n,
+                     "launches": launches}
         log(f"[engines] serve {name} {json.dumps(over)}: bucket {BATCH} wall "
             f"{out[name]['wall_ms']:.6g} ms/call, kernels {kernel_ms:.6g} "
-            f"ms ({n:.6g} kernel launches) of which gather {gather_ms:.6g} "
-            f"ms; per forward K1 {launches['conv3x3_valid.launches']}, norm "
+            f"ms ({n:.6g} kernel launches); per forward K1 "
+            f"{launches['conv3x3_valid.launches']}, norm "
             f"{launches['instance_norm.launches']} (AdaIN "
-            f"{launches['instance_norm.affine_launches']}) [{card_str}]")
+            f"{launches['instance_norm.affine_launches']}), P1 "
+            f"{launches['pad_nhwc.launches']} [{card_str}]")
         del tr, gen
     return out
 
@@ -1904,8 +1997,9 @@ def engines_serve(card_str: str) -> dict:
 def engines_train(card_str: str) -> dict:
     """The headline train step under each of ``ENGINE_TRAIN``: 2 warm and
     10 timed steps (ms per step, host clock), every metric finite, the
-    launch invariants (K1's sites per :func:`engine_train_conv`), peak
-    memory, and kernel and gather ms of one step under the profiler."""
+    launch invariants (K1's sites per :func:`engine_train_conv`, P1's and
+    P1''s per ``ENGINE_TRAIN_PADS``), peak memory, and kernel ms of one
+    step under the profiler."""
     rng = np.random.default_rng(0)
     x_a, x_b = (torch.from_numpy(rng.uniform(-1, 1, (BATCH, HW, HW, 3))
                                  .astype(np.float32)).cuda()
@@ -1937,15 +2031,16 @@ def engines_train(card_str: str) -> dict:
             raise AssertionError(f"[engines] train {name}: non-finite "
                                  f"metrics")
         check_train_launches(launches, TIMED_STEPS, f"[engines] {name}",
-                             engine_train_conv(over))
-        kernel_ms, gather_ms, n = kernel_profile(step, 1)
+                             engine_train_conv(over),
+                             ENGINE_TRAIN_PADS[name])
+        kernel_ms, n = kernel_profile(step, 1)
         out[name] = {"ms_per_step": ms, "kernel_ms": kernel_ms,
-                     "gather_ms": gather_ms, "kernel_launches": n,
-                     "peak_gib": peak, "launches": launches}
+                     "kernel_launches": n, "peak_gib": peak,
+                     "launches": launches}
         log(f"[engines] train {name} {json.dumps(over)}: {ms:.6g} ms/step "
             f"over {TIMED_STEPS} steps after {WARM_STEPS}; kernels "
-            f"{kernel_ms:.6g} ms ({n:.6g} kernel launches) of which gather "
-            f"and scatter {gather_ms:.6g} ms per step; peak {peak:.6g} GiB; "
+            f"{kernel_ms:.6g} ms ({n:.6g} kernel launches) per step; peak "
+            f"{peak:.6g} GiB; "
             f"launches over the timed steps {json.dumps(launches)} "
             f"[{card_str}]")
         del trainer, holder
@@ -2137,7 +2232,9 @@ def phase_train_cli(card_str: str, tmp: str, step_ips: float) -> dict:
         "instance_norm.affine_launches": adain + ADAIN_PER_FWD * fwd,
         "instance_norm.affine_grad_launches": adain,
         "instance_norm_backward.launches": norm,
-        "instance_norm_backward.affine_launches": adain})
+        "instance_norm_backward.affine_launches": adain,
+        "pad_nhwc.launches": TRAIN_PAD_PER_MEMBER * steps + PAD_PER_FWD * fwd,
+        "pad_fold.launches": TRAIN_FOLD_PER_MEMBER * steps})
     log(f"[train-cli] launches over the loop's {end} steps and "
         f"{fwd} sample-sheet member forwards {json.dumps(got)}")
     if got != want:
@@ -2225,7 +2322,8 @@ def eval_launches(images: int, batch: int, members: int) -> dict:
     want = {name: 0 for name in _snapshot()}
     want.update({"conv3x3_valid.launches": CONV_PER_FWD * fwd,
                  "instance_norm.launches": NORM_PER_FWD * fwd,
-                 "instance_norm.affine_launches": ADAIN_PER_FWD * fwd})
+                 "instance_norm.affine_launches": ADAIN_PER_FWD * fwd,
+                 "pad_nhwc.launches": PAD_PER_FWD * fwd})
     return want
 
 
@@ -3104,10 +3202,10 @@ def phase_complete(card_str: str, tmp: str) -> None:
         for name in ("plain", "vgg_w"):
             check_train_launches(runs[name]["timed_launches"], steps, name)
         if remat["timed_launches"] != remat_stage_launches(
-                plain["timed_launches"]):
+                plain["timed_launches"], steps):
             raise AssertionError(f"remat_stages launches over {steps} steps "
                                  f"{remat['timed_launches']}")
-        want = remat_stage_launches(plain["launches"])
+        want = remat_stage_launches(plain["launches"], MULTI_STEPS)
         bad = payload_diff(remat["payload"], plain["payload"])
         log(f"[complete] (a) remat_stages: {MULTI_STEPS} headline steps "
             f"{'bit-equal' if not bad else 'NOT bit-equal'} to the plain "
@@ -3605,6 +3703,12 @@ def main():
          "councilx/ops/quant.py:56",
          quant_launches["quantize_act.per_image_launches"],
          kres[("quant_act_dynamic", "resblock")]),
+        ("pad_nhwc", "cuda", "councilx_torch/csrc/pad_nhwc.cu",
+         "councilx/nn/blocks.py:95", launches["pad_nhwc.launches"],
+         kres[("pad_nhwc", "bf16", main_shape)]),
+        ("pad_fold", "cuda", "councilx_torch/csrc/pad_nhwc.cu",
+         "councilx/nn/blocks.py:95", launches["pad_fold.launches"],
+         kres[("pad_fold", "bf16", main_shape)]),
     ]
     # K1/K1'/K2 at the engines' shapes; launches: the kernel's count in
     # the engines phase's run where the shape runs (a serving forward under

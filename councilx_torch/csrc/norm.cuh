@@ -3,7 +3,7 @@
 // their block shape, f32 conversions of an element, VEC elements as one
 // 16-byte vector, and the device queries that size their grids. The W8A8
 // activation quantize (quant_act.cu) uses the conversions and the device
-// attribute query.
+// attribute query, the pad kernels (pad_nhwc.cu) the conversions.
 //
 // Each source that includes this file is built into a shared library of
 // its own (ops/_build.py hashes every *.cuh into each library's name).

@@ -9,13 +9,15 @@ reference ``.pt`` files and converted JAX checkpoints load with
 ``load_state_dict(strict=True)``. Parameters stay float32 and are cast to
 the activation's dtype at use, as the JAX modules do.
 
-The two kernel sites: the 3x3 stride-1 conv of the resblocks goes through
+The kernel sites: the 3x3 stride-1 conv of the resblocks goes through
 :func:`councilx_torch.ops.conv3x3.conv3x3_valid` (or, with ``fuse_pad``,
 :func:`~councilx_torch.ops.conv3x3.conv3x3_same_zero`, the same kernel at a
-zero pad of 1, inside the strips engine), and every IN/AdaIN through
-:func:`councilx_torch.ops.instance_norm.instance_norm`. Both are autograd
-Functions: on CUDA tensors they launch the Hopper kernels forward and
-backward; on CPU tensors their plain versions run. A block with ``quant``
+zero pad of 1, inside the strips engine), every IN/AdaIN through
+:func:`councilx_torch.ops.instance_norm.instance_norm`, and every reflect
+or replicate pad (:func:`pad2d`) through
+:func:`councilx_torch.ops.pad.pad_nhwc`. All are autograd Functions:
+on CUDA tensors they launch the Hopper kernels forward and backward; on
+CPU tensors their plain versions run. A block with ``quant``
 (W8A8 serving, ``ops/quant.py``) runs its conv on the int8 kernels
 instead, ahead of the 3x3 site, as in the JAX package. The JAX block's
 conv engines are the port's too: the fused upsample + 5x5 conv
@@ -39,7 +41,6 @@ batch-norm block's norm is MUNIT's ``nn.BatchNorm2d``: ``norm.weight`` and
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -48,9 +49,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from councilx_torch.ops.conv3x3 import conv3x3_valid, hwio_weight
+from councilx_torch.ops import pad as pad_ops
 from councilx_torch.ops.instance_norm import instance_norm
 from councilx_torch.ops.quant import (QuantWeight, conv_int8, div127,
                                       quantize_act, quantize_weights)
+from councilx_torch.utils import trace
 
 AdaINPair = Tuple[torch.Tensor, torch.Tensor]
 QUANT_MODES = ("none", "w8a8", "w8a8_calib", "w8a8_static")
@@ -218,35 +221,21 @@ def make_activation(name: str
 # ---------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=None)
-def _pad_index(n: int, p: int, pad_type: str,
-               device: torch.device) -> torch.Tensor:
-    """Source index of each padded row (column). Cached: building it takes
-    six small launches, which on the card cost more than the pad itself.
-    Built outside inference mode, so that autograd may save it; never
-    written, and never evicted: a captured graph reads it."""
-    if pad_type == "reflect" and p >= n:
-        raise ValueError(f"reflect pad {p} needs a dimension > {p}, got {n}")
-    with torch.inference_mode(False):
-        idx = torch.arange(-p, n + p, device=device)
-        if pad_type == "reflect":
-            idx = idx.abs()
-            return torch.where(idx >= n, 2 * (n - 1) - idx, idx)
-        return idx.clamp(0, n - 1)        # replicate
-
-
 def pad2d(x: torch.Tensor, padding: int, pad_type: str) -> torch.Tensor:
     """Spatial padding of NHWC x, as torch's ReflectionPad2d /
-    ReplicationPad2d / ZeroPad2d do it; the result is contiguous NHWC."""
+    ReplicationPad2d / ZeroPad2d do it; the result is contiguous NHWC.
+    Reflect and replicate run ``ops/pad.py::pad_nhwc``: the pad kernels on
+    a CUDA tensor (counted as ``pad.kernel``; a dtype they do not take
+    raises), the index gather on the CPU."""
     if padding == 0:
         return x
     if pad_type == "zero":
         return F.pad(x, (0, 0, padding, padding, padding, padding))
     if pad_type not in ("reflect", "replicate"):
         raise ValueError(f"unknown pad_type: {pad_type}")
-    ih = _pad_index(x.shape[1], padding, pad_type, x.device)
-    iw = _pad_index(x.shape[2], padding, pad_type, x.device)
-    return x[:, ih[:, None], iw[None, :]]
+    if x.device.type == "cuda":
+        trace.count("pad.kernel")
+    return pad_ops.pad_nhwc(x, padding, pad_type)
 
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:

@@ -8,9 +8,10 @@ header in ``csrc/`` (``*.cuh``, ``*.h``) and of the flags, so an edited
 source or header is never served by a stale build.
 
 The sources: ``conv3x3`` (K1/K1'), ``conv3x3_wgrad`` (K2),
-``instance_norm_fwd`` (K3/K4), ``instance_norm_bwd`` (K5/K6), and the
-W8A8 serving kernels ``quant_act`` (Q2) and ``conv_int8`` (Q1); each loads
-on its first use, and ``chip_smoke.py`` builds them all at once.
+``instance_norm_fwd`` (K3/K4), ``instance_norm_bwd`` (K5/K6), ``pad_nhwc``
+(P1/P1', the reflect and replicate pad and its fold), and the W8A8
+serving kernels ``quant_act`` (Q2) and ``conv_int8`` (Q1); each loads on
+its first use, and ``chip_smoke.py`` builds them all at once.
 
 Builds happen under one lock, so the serving engine's threads cannot race
 a build; :func:`build_cuda_libraries` runs one ``nvcc`` per source at once.

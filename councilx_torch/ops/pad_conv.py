@@ -2,7 +2,7 @@
 
 Counterpart of ``councilx/ops/pad_conv.py``. The reference pads with
 ``nn.ReflectionPad2d`` before every conv; the direct translation
-(:func:`~councilx_torch.nn.blocks.pad2d`, an index gather, then a VALID
+(:func:`~councilx_torch.nn.blocks.pad2d`, P1 on the card, then a VALID
 conv) writes a padded copy of the activation. The engines, each exact up
 to float summation order:
 

@@ -18,8 +18,7 @@ thread replays in turn. Its recipe is PyTorch's:
    outside the capture: the kernels' libraries and their shared-memory
    attributes (once per thread, autograd's included), the conv wgrad's
    per-stream ticket counters (``ops/conv3x3.py``, keyed by this stream),
-   the reflect-pad index cache (``nn/blocks.py::_pad_index``), the
-   derived-weight and int8-weight caches, cuDNN's and cuBLAS's handles,
+   the derived-weight and int8-weight caches, cuDNN's and cuBLAS's handles,
    and each process group's NCCL communicator (PyTorch makes it at the
    group's first collective; inside a capture a collective is recorded on
    the group's stream, joined to the capture's, like any kernel).

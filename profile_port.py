@@ -70,6 +70,8 @@ CLASSES = (
      ("instance_norm_bwd_kernel",)),
     ("K3/K4 norm forward (CUDA, instance_norm_fwd.cu)",
      ("instance_norm_fwd_kernel",)),
+    ("P1/P1' reflect pad and fold (pad_nhwc.cu)", ("pad_nhwc_kernel",
+                                                   "pad_fold_kernel")),
     ("cuDNN / cuBLAS convs and matmuls", ("cudnn", "xmma", "gemm", "conv",
                                           "cutlass", "sm90_", "nchwTo",
                                           "nhwcTo", "wgrad_alg", "dgrad")),

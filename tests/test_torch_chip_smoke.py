@@ -159,6 +159,128 @@ def test_engine_train_conv_is_the_steps_k1_sites(monkeypatch, setting):
     assert len(calls) == 2 * chip_smoke.engine_train_conv(over)
 
 
+def _count_pads(monkeypatch):
+    """Counts P1's and P1''s calls on the CPU, where ``pad_nhwc`` runs the
+    gather: the gather wrapped in an autograd function that counts its
+    forward and, as P1' does, its backward. Q2 pads inside its own kernel
+    on the card, so the CPU quantize's pad is not counted."""
+    from councilx_torch.ops import pad as pad_ops
+    from councilx_torch.ops import quant as quant_ops
+
+    calls = {"pad_nhwc": 0, "pad_fold": 0}
+    real, real_quant = pad_ops.pad_reference, quant_ops.quantize_act_reference
+    quantizing = []
+
+    class Counted(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, p, pad_type):
+            calls["pad_nhwc"] += 1
+            ctx.fold = (x.shape[1], x.shape[2], p, pad_type)
+            return real(x, p, pad_type)
+
+        @staticmethod
+        def backward(ctx, dy):
+            calls["pad_fold"] += 1
+            return pad_ops.pad_fold_reference(dy, *ctx.fold), None, None
+
+    def pad_reference(x, p, pad_type):
+        if quantizing:
+            return real(x, p, pad_type)
+        return Counted.apply(x, p, pad_type)
+
+    def quantize_act_reference(*args, **kwargs):
+        quantizing.append(True)
+        try:
+            return real_quant(*args, **kwargs)
+        finally:
+            quantizing.pop()
+
+    monkeypatch.setattr(pad_ops, "pad_reference", pad_reference)
+    monkeypatch.setattr(quant_ops, "quantize_act_reference",
+                        quantize_act_reference)
+    return calls
+
+
+# the flagship and headline models at 64 px with width 32: every conv but
+# the image's keeps more than 16 channels, as at full width, so each takes
+# the same engine
+PAD_WIDTHS = {"crop_image_height": 64, "crop_image_width": 64,
+              "new_size": 72, "batch_size": 1}
+
+
+def _narrow(raw: dict) -> dict:
+    return {**raw, **PAD_WIDTHS, "gen": {**raw["gen"], "dim": 32},
+            "dis": {**raw["dis"], "dim": 32}}
+
+
+@pytest.mark.parametrize("setting,over,want", [
+    *[(n, o, chip_smoke.ENGINE_SERVE_PADS[n])
+      for n, o in chip_smoke.ENGINE_SERVE],
+    *[(f"quant {scope}", {"quant": "w8a8", "quant_scope": scope},
+       chip_smoke.QUANT_PAD_PER_FWD[scope])
+      for scope in chip_smoke.QUANT_SCOPES]])
+def test_pad_per_fwd_is_the_generators_pad_sites(monkeypatch, setting,
+                                                 over, want):
+    """P1's launches per member forward that phases 4, 9, 10 and the
+    engines phase hold the card to are the pads of one port forward of the
+    flagship model under the same settings, and none of them folds."""
+    from councilx_torch.config import Config
+    from councilx_torch.inference.translate import Translator
+
+    tr = Translator(Config.from_dict(_narrow({**chip_smoke.FLAGSHIP,
+                                              **over})), device="cpu")
+    gen = tr.init_members(1, seed=0)[0]
+    calls = _count_pads(monkeypatch)
+    tr.translate(gen, np.zeros((1, 64, 64, 3), np.float32),
+                 np.zeros((1, 8), np.float32))
+    assert calls == {"pad_nhwc": want, "pad_fold": 0}
+    if setting == "defaults":
+        assert want == chip_smoke.PAD_PER_FWD
+
+
+@pytest.mark.parametrize("setting", [n for n, _ in chip_smoke.ENGINE_TRAIN]
+                         + ["remat_stages"])
+def test_train_pads_are_the_steps_pad_sites(monkeypatch, setting):
+    """P1's and P1''s launches per member and headline train step that
+    phases 6, 8, 11, 12 and the engines phase hold the card to are those
+    of one port train step (council-2) under the same settings; under
+    remat_stages P1 runs again at the stages' pads."""
+    from councilx_torch.config import Config
+    from councilx_torch.train.trainer import CouncilTrainer
+
+    if setting == "remat_stages":
+        over = {"remat_stages": True}
+        want = (chip_smoke.TRAIN_PAD_PER_MEMBER
+                + chip_smoke.REMAT_PAD_PER_MEMBER,
+                chip_smoke.TRAIN_FOLD_PER_MEMBER)
+    else:
+        over = dict(chip_smoke.ENGINE_TRAIN)[setting]
+        want = chip_smoke.ENGINE_TRAIN_PADS[setting]
+    raw = _narrow({**chip_smoke.HEADLINE, **over})
+    raw["council"] = {**raw["council"], "council_size": 2}
+    trainer = CouncilTrainer(Config.from_dict(raw), device="cpu")
+    state = trainer.init_state(seed=0)
+    x = torch.zeros(1, 64, 64, 3)
+    calls = _count_pads(monkeypatch)
+    trainer.train_step(state, x, x)
+    assert calls == {"pad_nhwc": 2 * want[0], "pad_fold": 2 * want[1]}
+
+
+def test_sample_sheet_pads_are_a_forward_per_member(monkeypatch):
+    """Phase 8's sample sheets: ``trainer.sample`` is one forward of every
+    member, ``PAD_PER_FWD`` P1 launches each and no fold."""
+    from councilx_torch.config import Config
+    from councilx_torch.train.trainer import CouncilTrainer
+
+    raw = _narrow(chip_smoke.HEADLINE)
+    raw["council"] = {**raw["council"], "council_size": 2}
+    trainer = CouncilTrainer(Config.from_dict(raw), device="cpu")
+    state = trainer.init_state(seed=0)
+    calls = _count_pads(monkeypatch)
+    trainer.sample(state, torch.zeros(1, 64, 64, 3))
+    assert calls == {"pad_nhwc": 2 * chip_smoke.PAD_PER_FWD, "pad_fold": 0}
+
+
 def test_norm_bound_is_set_by_the_bytes_not_the_arithmetic():
     for name in chip_smoke.NORM_WORK:
         ops, nbytes, kind = chip_smoke.kernel_work(name, (8, 64, 64, 256))
@@ -215,6 +337,13 @@ def test_time_quant_refuses_to_run_without_a_card(monkeypatch):
     ("void (anonymous namespace)::quant_kernel<float, false, 0>(float "
      "const*, signed char*, float const*, float*, float*, int, int, int, "
      "int, int, int, int, int, int)", "Q2 activation quantize (quant_act.cu)"),
+    ("void (anonymous namespace)::pad_nhwc_kernel<uint4>(uint4 const*, "
+     "uint4*, int, int, int, int, long long, long long, long long, long "
+     "long, int, int, int)", "P1/P1' reflect pad and fold (pad_nhwc.cu)"),
+    ("void (anonymous namespace)::pad_fold_kernel<__nv_bfloat16, uint4>("
+     "uint4 const*, uint4*, int, int, int, int, long long, long long, long "
+     "long, long long, int, int, int)",
+     "P1/P1' reflect pad and fold (pad_nhwc.cu)"),
 ])
 def test_profile_classes_take_the_ports_kernels_before_cudnn(name, label):
     # the cuDNN class matches "conv", "wgrad" and "dgrad" substrings, so the
@@ -268,14 +397,15 @@ def test_chip_smoke_times_the_decode_from_empty_queues(tmp_path, monkeypatch):
 def test_eval_launches_are_4_members_by_2_batches():
     """Phase 9's eval call: 32 images at batch 16 through council-4 is 8
     member forwards of 16 convs and 19 norm sites (8 of them AdaIN), and
-    nothing under a gradient."""
+    nothing under a gradient, 28 P1 launches a forward."""
     want = chip_smoke.eval_launches(chip_smoke.CLI_IMAGES,
                                     chip_smoke.EVAL_BATCH,
                                     chip_smoke.N_MEMBERS)
     assert want["conv3x3_valid.launches"] == 128
     assert want["instance_norm.launches"] == 152
     assert want["instance_norm.affine_launches"] == 64
-    assert sum(want.values()) == 128 + 152 + 64
+    assert want["pad_nhwc.launches"] == 224
+    assert sum(want.values()) == 128 + 152 + 64 + 224
     assert set(want) == set(chip_smoke._snapshot())
     # a padded tail batch is one more forward of every member
     assert chip_smoke.eval_launches(33, 16, 4)[
@@ -345,11 +475,11 @@ def test_unfold_int8_rows_times_the_weight_are_the_conv(k, stride):
     ("resblocks", "w8a8", None), ("heavy", "w8a8_static", None),
     ("resblocks", "w8a8", "k1"), ("heavy", "w8a8", "per_image"),
     ("heavy", "w8a8_static", "per_image"), ("resblocks", "w8a8", "q1"),
-    ("heavy", "w8a8", "q2")])
+    ("heavy", "w8a8", "q2"), ("heavy", "w8a8", "p1")])
 def test_check_quant_counts_raises_on_a_wrong_launch(scope, mode, breakage):
     """Phase 10's launch check: Q1 and Q2 once each at every quantized
     conv (Q2 one launch in either mode, per image under w8a8), K1 never,
-    the norms as unquantized."""
+    the norms as unquantized, P1 at the unquantized convs' pads."""
     fwd = 2
     per = chip_smoke.QUANT_PER_FWD[scope] * fwd
     got = {name: 0 for name in chip_smoke._snapshot()}
@@ -358,7 +488,9 @@ def test_check_quant_counts_raises_on_a_wrong_launch(scope, mode, breakage):
                 else 0,
                 "instance_norm.launches": chip_smoke.NORM_PER_FWD * fwd,
                 "instance_norm.affine_launches":
-                    chip_smoke.ADAIN_PER_FWD * fwd})
+                    chip_smoke.ADAIN_PER_FWD * fwd,
+                "pad_nhwc.launches": chip_smoke.QUANT_PAD_PER_FWD[scope]
+                * fwd})
     if breakage == "k1":
         got["conv3x3_valid.launches"] = 16
     elif breakage == "per_image":
@@ -368,6 +500,9 @@ def test_check_quant_counts_raises_on_a_wrong_launch(scope, mode, breakage):
         got["quantize_act.launches"] *= 2
     elif breakage == "q1":
         got["conv_int8.launches"] -= 1
+    elif breakage == "p1":
+        # the quantized convs padded by P1 besides Q2
+        got["pad_nhwc.launches"] = chip_smoke.PAD_PER_FWD * fwd
     if breakage is None:
         chip_smoke.check_quant_counts(got, fwd, scope, mode, "test")
         return
@@ -421,9 +556,10 @@ def test_write_random_vgg_gives_26_tensors_both_loaders_accept(tmp_path):
 
 def test_remat_stage_launches_double_the_forward_counts():
     """Phase 12 (a)'s invariant over 2 headline steps: phase 6's counts
-    (32 conv and 38 norm sites, 16 of them AdaIN, per member and step, 4
-    members) with every forward counter doubled by the stages' recompute
-    and the backward ones unchanged."""
+    (32 conv and 38 norm sites, 16 of them AdaIN, 122 P1 and 111 P1' per
+    member and step, 4 members) with every forward counter doubled by the
+    stages' recompute, P1 run again at the stages' 56 pads, and the
+    backward ones unchanged."""
     steps, members = chip_smoke.MULTI_STEPS, chip_smoke.N_MEMBERS
     plain = {"conv3x3_valid.launches": 0, "conv3x3_valid.grad_launches": 0,
              "conv3x3_dgrad.launches": 0, "conv3x3_wgrad.launches": 0,
@@ -432,8 +568,10 @@ def test_remat_stage_launches_double_the_forward_counts():
              "instance_norm.affine_grad_launches": 0,
              "instance_norm_backward.launches": 0,
              "instance_norm_backward.affine_launches": 0,
-             "conv_int8.launches": 0}
-    conv, norm, adain = (n * steps * members for n in (32, 38, 16))
+             "conv_int8.launches": 0, "pad_nhwc.launches": 0,
+             "pad_fold.launches": 0}
+    conv, norm, adain, pad, fold = (n * steps * members
+                                    for n in (32, 38, 16, 122, 111))
     plain.update({
         "conv3x3_valid.launches": conv, "conv3x3_valid.grad_launches": conv,
         "conv3x3_dgrad.launches": conv, "conv3x3_wgrad.launches": conv,
@@ -441,9 +579,10 @@ def test_remat_stage_launches_double_the_forward_counts():
         "instance_norm.affine_launches": adain,
         "instance_norm.affine_grad_launches": adain,
         "instance_norm_backward.launches": norm,
-        "instance_norm_backward.affine_launches": adain})
+        "instance_norm_backward.affine_launches": adain,
+        "pad_nhwc.launches": pad, "pad_fold.launches": fold})
     chip_smoke.check_train_launches(plain, steps, "plain")
-    got = chip_smoke.remat_stage_launches(plain)
+    got = chip_smoke.remat_stage_launches(plain, steps)
     assert got["conv3x3_valid.launches"] == got[
         "conv3x3_valid.grad_launches"] == 2 * 256 == 512
     assert got["instance_norm.launches"] == 2 * 304
@@ -453,6 +592,8 @@ def test_remat_stage_launches_double_the_forward_counts():
     assert got["instance_norm_backward.launches"] == 304
     assert got["instance_norm_backward.affine_launches"] == 128
     assert got["conv_int8.launches"] == 0
+    assert got["pad_nhwc.launches"] == (122 + 56) * 8
+    assert got["pad_fold.launches"] == 111 * 8
     with pytest.raises(AssertionError):
         chip_smoke.check_train_launches(got, steps, "remat_stages")
 

@@ -24,11 +24,14 @@ from councilx_torch.ops.conv3x3 import (conv3x3_dgrad,
                                         conv3x3_valid, conv3x3_valid_reference,
                                         conv3x3_wgrad, conv3x3_wgrad_reference,
                                         hwio_weight)
+from councilx_torch.ops import _build
 from councilx_torch.ops import instance_norm as norm_ops
+from councilx_torch.ops import pad as pad_ops
 from councilx_torch.ops.instance_norm import (
     instance_norm, instance_norm_backward, instance_norm_backward_reference,
     instance_norm_forward_reference, instance_norm_reference)
 from councilx_torch.train.trainer import CouncilTrainer
+from councilx_torch.utils import trace
 
 pytestmark = pytest.mark.cuda
 
@@ -39,6 +42,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on a GPU")
+    # every kernel library before the first test, so that no nvcc runs in
+    # this process between profiled calls: short traces taken after an
+    # in-process build have come back without a device event
+    _build.build_cuda_libraries(chip_smoke.CUDA_SOURCES)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
@@ -1172,3 +1179,224 @@ def test_sharded_captured_call_is_the_eager_one(cuda, layout):
     for a, b in zip(outs[False], outs[True]):
         np.testing.assert_array_equal(a, b)
     tr.close()
+
+
+# ---------------------------------------------------------------------------
+# P1 / P1': the reflect and replicate pad (csrc/pad_nhwc.cu) and its fold
+# ---------------------------------------------------------------------------
+
+# the pad's shape classes: the image (C 3) and the council discriminator's
+# input (C 6, odd H and W: sub-16-byte words), batch 1, the decoder's and
+# the resblocks' widths (odd H), the strips engine's 2p-wide border slices
+# of rows and of columns, and channels that are not innermost
+PAD_CASES = ["c3", "c6_odd", "c64_b1", "c128", "c256_odd", "row_strip",
+             "col_strip", "channels_strided"]
+
+
+def _pad_input(case, p, dtype, g, device):
+    def randn(*dims):
+        return torch.randn(*dims, device=device, generator=g).to(dtype)
+
+    if case == "c3":
+        return randn(2, 16, 16, 3)
+    if case == "c6_odd":
+        return randn(2, 17, 9, 6)
+    if case == "c64_b1":
+        return randn(1, 12, 15, 64)
+    if case == "c128":
+        return randn(2, 8, 8, 128)
+    if case == "c256_odd":
+        return randn(2, 9, 16, 256)
+    if case == "row_strip":
+        return randn(2, 16, 16, 256)[:, :2 * p]
+    if case == "col_strip":
+        return randn(2, 16, 16, 64)[:, :, -2 * p:]
+    return randn(2, 64, 9, 10).permute(0, 2, 3, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("p", [1, 2, 3])
+@pytest.mark.parametrize("pad_type", ["reflect", "replicate"])
+@pytest.mark.parametrize("case", PAD_CASES)
+def test_pad_kernel_is_the_gather(cuda, case, pad_type, p, dtype):
+    """P1 copies values: bit-equal to the index gather, one launch."""
+    g = torch.Generator(device=cuda).manual_seed(p)
+    x = _pad_input(case, p, dtype, g, cuda)
+    before = pad_ops.pad_nhwc.launches
+    got = pad_ops.pad_nhwc(x, p, pad_type)
+    torch.cuda.synchronize()
+    assert pad_ops.pad_nhwc.launches == before + 1
+    assert got.is_contiguous()
+    assert torch.equal(got, pad_ops.pad_reference(x, p, pad_type))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("p", [1, 2, 3])
+@pytest.mark.parametrize("pad_type", ["reflect", "replicate"])
+@pytest.mark.parametrize("case", PAD_CASES)
+def test_pad_fold_is_the_gathers_gradient(cuda, case, pad_type, p, dtype):
+    """P1' through autograd against the plain fold in f64 (the oracle) and
+    against autograd's gradient of the gather: f32 to 1e-6 relative (sums
+    of at most sixteen f32 terms in another order); bf16 within one
+    rounding of the f64 sum element by element. The gather's bf16 gradient
+    rounds more than once where several padded positions fold onto one
+    pixel (up to two bf16 steps from P1''s at 4 to 16 terms, on an H100),
+    so against it P1' is held to that gradient's own distance from the sum
+    plus one rounding."""
+    g = torch.Generator(device=cuda).manual_seed(10 + p)
+    x = _pad_input(case, p, dtype, g, cuda)
+    b, h, w, c = x.shape
+    shape = (b, h + 2 * p, w + 2 * p, c)
+    dy = (torch.randn(b, c, shape[1], shape[2], device=cuda,
+                      generator=g).permute(0, 2, 3, 1)
+          if case == "channels_strided"
+          else torch.randn(shape, device=cuda, generator=g)).to(dtype)
+    leaf = x.detach().requires_grad_()
+    before = pad_ops.pad_fold.launches
+    got, = torch.autograd.grad(pad_ops.pad_nhwc(leaf, p, pad_type), leaf,
+                               dy)
+    torch.cuda.synchronize()
+    assert pad_ops.pad_fold.launches == before + 1
+    leaf = x.detach().requires_grad_()
+    want, = torch.autograd.grad(pad_ops.pad_reference(leaf, p, pad_type),
+                                leaf, dy)
+    oracle = pad_ops.pad_fold_reference(dy.double(), h, w, p, pad_type)
+    if dtype == torch.float32:
+        _close(got, oracle, 1e-6)
+        _close(got, want, 1e-6)
+        return
+    # one round to nearest of the f32 sum, which holds the bf16 terms'
+    # sum exactly but where their exponents lie far apart
+    err = (got.double() - oracle).abs()
+    one = 2 ** -8 * oracle.abs() + 2 ** -20 * oracle.abs().max()
+    assert (err <= one).all(), err.max().item()
+    gap = (got.double() - want.double()).abs()
+    assert (gap <= (want.double() - oracle).abs() + one).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("pad_type", ["reflect", "replicate"])
+def test_pad_fold_is_deterministic(cuda, dtype, pad_type):
+    g = torch.Generator(device=cuda).manual_seed(21)
+    dy = torch.randn(8, 66, 66, 256, device=cuda, generator=g).to(dtype)
+    first = pad_ops.pad_fold(dy, 64, 64, 1, pad_type)
+    for _ in range(3):
+        assert torch.equal(pad_ops.pad_fold(dy, 64, 64, 1, pad_type), first)
+
+
+def test_pad_is_one_kernel_each_way(cuda):
+    g = torch.Generator(device=cuda).manual_seed(22)
+    x = torch.randn(2, 32, 32, 128, device=cuda, generator=g).bfloat16()
+    dy = torch.randn(2, 34, 34, 128, device=cuda, generator=g).bfloat16()
+    kernels = _device_kernels(lambda: pad_ops.pad_nhwc(x, 1, "reflect"))
+    assert len(kernels) == 1 and "pad_nhwc_kernel" in kernels[0], kernels
+    kernels = _device_kernels(
+        lambda: pad_ops.pad_fold(dy, 32, 32, 1, "reflect"))
+    assert len(kernels) == 1 and "pad_fold_kernel" in kernels[0], kernels
+
+
+def test_pad_kernels_are_captured(cuda):
+    """P1 and P1' replayed from a CUDA graph, bit-equal to eager."""
+    from councilx_torch.utils.graphs import CaptureContext
+
+    g = torch.Generator(device=cuda).manual_seed(23)
+    x = torch.randn(4, 20, 24, 64, device=cuda, generator=g).bfloat16()
+    dy = torch.randn(4, 26, 30, 64, device=cuda, generator=g).bfloat16()
+    fns = {"pad": lambda: pad_ops.pad_nhwc(x, 3, "reflect"),
+           "fold": lambda: pad_ops.pad_fold(dy, 20, 24, 3, "replicate")}
+    for name, fn in fns.items():
+        ctx = CaptureContext(cuda)
+        want = ctx.run(fn).clone()
+        call = ctx.capture(fn, [], name)
+        got = call().clone()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), name
+
+
+def _recorded(fn):
+    """fn() with the recorder on from empty -> (fn's result, the counts)."""
+    trace.clear()
+    trace.on()
+    try:
+        out = fn()
+    finally:
+        trace.off()
+    counts = trace.counts()
+    trace.clear()
+    return out, counts
+
+
+@pytest.mark.parametrize("method", ["translate_u8io_device",
+                                    "translate_all_u8io_device"])
+def test_captured_translate_runs_no_gather(cuda, method):
+    """Member 0's and the all-members serving call at bucket 8: their warm-
+    up and capture pad through P1 (``pad.kernel`` counted), and a replay
+    launches P1 and no index gather."""
+    cfg = _serving_cfg()
+    tr = Translator(cfg, device=cuda)
+    gens = tr.init_members(2, seed=0)
+    params = gens if "all" in method else gens[0]
+    call, counts = _recorded(lambda: tr.captured(method, params, 8,
+                                                 (256, 256)))
+    assert counts["pad.kernel"] > 0
+    r = np.random.default_rng(3)
+    x = torch.from_numpy(r.integers(0, 256, (8, 256, 256, 3),
+                                    dtype=np.uint8))
+    z = torch.from_numpy(r.standard_normal(
+        (8, cfg.gen.style_dim)).astype(np.float32))
+    names = _device_kernels(lambda: call(x, z))
+    assert not [n for n in names if "index_elementwise" in n], names
+    assert any("pad_nhwc_kernel" in n for n in names), names
+
+
+def test_captured_train_step_runs_no_index_backward(cuda):
+    """chip_smoke's reduced config in bf16: the compiled step's warm-up and
+    capture pad through P1 (``pad.kernel`` counted), and a replay launches P1 and P1' and
+    neither the gather, nor index_put_'s backward kernel, nor a sort. The
+    index_elementwise launches left are torch.flip's, of the conv weights
+    derived in the step: K1''s flipped kernel (``ops/conv3x3.py``
+    ``_kernel_weight``) and the dilated upsample's flipped 6x6 kernel
+    (``ops/upsample_conv.py``)."""
+    cfg = Config.from_dict({**chip_smoke.REDUCED,
+                            "compute_dtype": "bfloat16"})
+    tr = CouncilTrainer(cfg, device=cuda)
+    r = np.random.default_rng(4)
+    x_a, x_b = (torch.from_numpy(r.uniform(-1, 1, (2, 64, 64, 3)).astype(
+        np.float32)).to(cuda) for _ in range(2))
+    held = [tr.init_state(seed=0)]
+
+    def step_once():
+        held[0], _ = step(held[0], x_a, x_b)
+
+    def build():
+        compiled = tr.compile_step(held[0])
+        for _ in range(2):        # the eager warm-up, then the capture
+            held[0], _ = compiled(held[0], x_a, x_b)
+        return compiled
+
+    step, counts = _recorded(build)
+    assert counts["pad.kernel"] > 0
+    names = _device_kernels(step_once)
+    bad = [n for n in names if any(k in n for k in (
+        "indexing_backward", "Sort", "sort", "radix"))
+           or ("index_elementwise" in n and "flip_kernel_impl" not in n)]
+    assert not bad, "\n".join(bad)
+    assert any("pad_fold_kernel" in n for n in names), names
+
+
+def test_pad_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros(1, 3, 8, 4, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        pad_ops.pad_nhwc(x.half(), 1, "reflect")
+    with pytest.raises(ValueError, match="reflect pad 3"):
+        pad_ops.pad_nhwc(x, 3, "reflect")
+    with pytest.raises(ValueError, match="pad_type"):
+        pad_ops.pad_nhwc(x, 1, "zero")
+    with pytest.raises(ValueError, match="padded by"):
+        pad_ops.pad_fold(torch.zeros(1, 5, 9, 4, device=cuda), 3, 8, 1,
+                         "reflect")
+    # pad2d sends every CUDA pad to the kernels: no fallback to the gather
+    from councilx_torch.nn.blocks import pad2d
+
+    with pytest.raises(ValueError, match="dtype"):
+        pad2d(x.half(), 1, "reflect")
